@@ -5,8 +5,9 @@ which stays the reference it is held against: for the same input, LUT and
 configuration the codestreams are byte-identical. Plain tensor work is
 PyTorch; the BPC-PaCo entropy coder, the hot loop, is a pair of CUDA C++
 kernels written for sm_90a (one warp per 64x64 codeblock, the reference
-coder's own mapping), each with a plain PyTorch version beside it that the
-CPU runs and the tests compare against.
+coder's own mapping), and the two Mosaic probes of `tools/` have their
+CUDA counterparts too; each kernel has a plain PyTorch version beside it
+that the CPU runs and the tests compare against.
 
 Nothing here imports JAX. The framework-neutral layers of `picsong_tpu`
 are shared, not copied: `core` (spec, header, LUT parser, image IO,
@@ -15,13 +16,15 @@ codeblock bands), `reference` (the NumPy oracle), `assembly.pack` and
 
 Layer map (mirrors picsong_tpu):
   core/geometry.py    codeblock tiling of a plane (torch reshapes)
-  transform/dwt.py    lifting DWT 5/3, forward and reverse (int32 torch ops)
+  transform/dwt.py    lifting DWT 5/3 (int32) and 9/7 (float32), both ways
   entropy/bpc.py      plain PyTorch BPC-PaCo cp=2 k=0 + host metadata helpers
   entropy/bpc_cuda.py device dispatch: CPU -> plain, CUDA -> the kernels
-  csrc/               the CUDA C++ kernels (bpc_encode.cu, bpc_decode.cu)
+  csrc/               the CUDA C++ kernels (bpc_encode.cu, bpc_decode.cu,
+                      probe.cu, probe2.cu)
   kernels.py          nvcc build of csrc/ into build/ and the ctypes binding
-  engine/pipeline.py  TorchCodec: gray lossless encode/decode of one plane
+  engine/pipeline.py  TorchCodec: gray/RGB, lossless/lossy, 8-16 bit images
   engine/cli.py       the reference-compatible command line
+  tools/probe*.py     the probes' wrappers, plain versions, entry points
   obs/trace.py        stage timers with NVTX ranges
 
 Every function takes its device from its tensors or an explicit `device`

@@ -2,15 +2,20 @@
 
 Same flags, defaults and validation (Launcher.cu:36-163); on decode every
 configuration value comes from the codestream header. Image mode only, for
-the configurations `TorchCodec` covers (gray, lossless 5/3, cp=2, k=0, at
-most 8 bits per sample); anything else prints "not yet ported" and exits
-with status 2. One extra flag, `--device` (default `cuda`), picks the
-device the codec runs on.
+the configurations `TorchCodec` covers (cp=2, k=0: gray or planar RGB,
+lossless 5/3 or lossy 9/7, up to 16 bits per sample, signed or unsigned,
+either endianness); anything else prints "not yet ported" and exits with
+status 2. One extra flag, `--device` (default `cuda`), picks the device
+the codec runs on.
 
   python -m picsong_tpu_torch.engine.cli -cd 0 -i in.pgm -o out.enc \
       -wl 5 -cp 2 -type 0 -video 0 -LUTFolder trained -k 0
   python -m picsong_tpu_torch.engine.cli -cd 1 -i out.enc -o dec.pgm \
       -video 0 -LUTFolder trained
+  python -m picsong_tpu_torch.engine.cli -cd 0 -i in.raw -o out.enc \
+      -xSize 2048 -ySize 2560 -isRGB 1 -type 1 -qs 1 -LUTFolder trained
+  python -m picsong_tpu_torch.engine.cli -cd 1 -i out.enc -o dec.raw \
+      -LUTFolder trained
 """
 
 from __future__ import annotations
@@ -34,25 +39,26 @@ from .pipeline import TorchCodec, unported
 HELP = """PICSONG codec, PyTorch/CUDA port. Options (reference-compatible):
   -h                 show this help
   -cd [0|1]          0 = encode, 1 = decode (required)
-  -i FILE            input file (.pgm or RAW for encode)
+  -i FILE            input file (.pgm or planar RAW for encode)
   -o FILE            output file
   -wl N              wavelet decomposition levels, 1..10 (encode)
   -cp [2|3]          coding passes (only 2 is ported)
-  -type [0|1]        0 = lossless 5/3 (1, lossy 9/7, is not ported yet)
+  -type [0|1]        0 = lossless 5/3, 1 = lossy 9/7
   -qs Q              quantization size in [0, 1] (lossy only)
   -cbWidth N         codeblock width knob (multiple of 64)
   -cbHeight N        DWT tile length knob (18..20)
   -xSize N -ySize N  image width / height (RAW inputs)
   -video [0|1]       frame-sequence mode (not ported yet)
   -frames N          number of frames (video encode)
-  -isRGB [0|1]       planar RGB input (not ported yet)
+  -isRGB [0|1]       planar RGB input
   -components N      component count
-  -bps N             bits per sample (up to 8 ported)
+  -bps N             bits per sample (8, 12 or 16)
   -endianess [0|1]   sample endianness
   -signedOrUnsigned [0|1]
   -numberOfStreams N video frame batch size
   -sharded N         shard coding over N devices (not ported yet)
-  -LUTFolder PATH    LUT folder (or 'neutral' / 'trained')
+  -LUTFolder PATH    LUT folder (or 'neutral' / 'trained': the lossless
+                     or, with -type 1, the lossy trained tables)
   -k K               complexity-scalability factor (only 0 is ported)
   --device DEV       torch device to run on (default cuda)
 """
@@ -94,6 +100,31 @@ def _load_luts(folder: str, wavelet_levels: int, coding_passes: int,
 def _not_ported(what: str) -> int:
     print(f"not yet ported to picsong_tpu_torch: {what}")
     return NOT_PORTED
+
+
+def _read_encode_input(path: str, cfg: CodecConfig):
+    """A PGM plane, or the planar RAW frame: one plane (gray) or the R, G
+    and B planes one after the other."""
+    if path.endswith(".pgm"):
+        return read_pgm(path)
+    dtype = sample_dtype(cfg.bps, cfg.endianess, cfg.is_signed)
+    if cfg.is_rgb:
+        return [read_raw_frame(path, cfg.width, cfg.height, c, dtype)
+                for c in range(3)]
+    return read_raw_frame(path, cfg.width, cfg.height, 0, dtype)
+
+
+def _write_decoded(path: str, out, cfg: CodecConfig) -> None:
+    """RGB as planar RAW; gray as PGM (by extension) or RAW, in the
+    header's sample type."""
+    dtype = sample_dtype(cfg.bps, cfg.endianess, cfg.is_signed)
+    if not cfg.is_rgb and path.endswith(".pgm"):
+        write_pgm(path, out, cfg.bit_depth)
+        return
+    if os.path.exists(path):
+        os.remove(path)
+    for plane in (out if cfg.is_rgb else [out]):
+        append_raw_frame(path, plane, dtype)
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -152,11 +183,7 @@ def main(argv: list[str] | None = None) -> int:
         if why is not None:
             return _not_ported(why)
         luts, params = _load_luts(opts.get("LUTFolder", ""), wl, cp, k, lossy)
-        if input_file.endswith(".pgm"):
-            pixels = read_pgm(input_file)
-        else:
-            pixels = read_raw_frame(input_file, cfg.width, cfg.height, 0,
-                                    sample_dtype(bps, endianess, is_signed))
+        pixels = _read_encode_input(input_file, cfg)
         codec = TorchCodec(cfg, luts, params, device)
         streams = codec.encode(pixels)
         for j, s in enumerate(streams):
@@ -180,14 +207,7 @@ def main(argv: list[str] | None = None) -> int:
                                             int(sizes[j]))
                             for j in range(len(sizes))]
         out = TorchCodec(cfg, luts, params, device).decode(comp_streams)
-        if output_file.endswith(".pgm"):
-            write_pgm(output_file, out, cfg.bit_depth)
-        else:
-            if os.path.exists(output_file):
-                os.remove(output_file)
-            append_raw_frame(output_file, out,
-                             sample_dtype(cfg.bps, cfg.endianess,
-                                          cfg.is_signed))
+        _write_decoded(output_file, out, cfg)
     else:
         print("Incorrect parameters. Please choose valid values.")
         return 1

@@ -1,14 +1,16 @@
 """Build and bind the port's CUDA kernels.
 
-Every `.cu` file in `csrc/` is compiled by `nvcc` for sm_90a into one
-shared library with a plain C interface,
-`build/picsong_tpu_torch/libpicsong_bpc.so` under the repository root, at
-first use (or when a source is newer than the library), and loaded with
+Every `.cu` file in `csrc/` is compiled by `nvcc` for sm_90a, one compiler
+process per source, all started together, and the objects are linked into
+one shared library with a plain C interface,
+`build/picsong_tpu_torch/libpicsong_kernels.so` under the repository root,
+at first use (or when a source is newer than the library), and loaded with
 `ctypes`. The sources include no PyTorch header, so a build takes seconds.
 
 There is no fallback: a missing compiler, a failed build or a failed load
-raises `KernelBuildError` with the compiler's output. Only the wrappers in
-`entropy/bpc_cuda.py` call into the library, and only for CUDA tensors.
+raises `KernelBuildError` with the compiler's output. Only the wrappers
+(`entropy/bpc_cuda.py`, `tools/probe.py`, `tools/probe2.py`) call into the
+library, and only for CUDA tensors.
 """
 
 from __future__ import annotations
@@ -23,9 +25,9 @@ _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build",
                          "picsong_tpu_torch")
-LIB_NAME = "libpicsong_bpc.so"
+LIB_NAME = "libpicsong_kernels.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # name -> argument types; every C entry point returns a cudaError_t as int
@@ -36,6 +38,10 @@ _SIGNATURES = {
     # streams, sizes, lut, lut_len, ref_b, sig_b, sign_b, n, n_planes, prec,
     # coeffs, stream
     "picsong_bpc_decode": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _P, _P],
+    # tape, base, out, stream
+    "picsong_probe": [_P, _P, _P, _P],
+    # tape, amt, out, stream
+    "picsong_probe2": [_P, _P, _P, _P],
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -67,26 +73,51 @@ def sources() -> list[str]:
     return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
 
 
+def _start(cmd: list[str]) -> subprocess.Popen:
+    try:
+        return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+    except OSError as e:
+        raise KernelBuildError(f"cannot run {cmd[0]}: {e}") from e
+
+
+def _finish(cmd: list[str], proc: subprocess.Popen) -> str:
+    out, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise KernelBuildError(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}")
+    return out
+
+
 def build(nvcc: str | None = None, build_dir: str = BUILD_DIR) -> tuple[str, str]:
-    """Compile csrc/*.cu into build_dir/libpicsong_bpc.so.
+    """Compile csrc/*.cu into build_dir/libpicsong_kernels.so.
 
     Returns (library path, compiler output, which holds ptxas's register
     and shared-memory report)."""
     nvcc = nvcc or find_nvcc()
     os.makedirs(build_dir, exist_ok=True)
     lib = os.path.join(build_dir, LIB_NAME)
-    tmp = f"{lib}.{os.getpid()}.tmp"
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *sources()]
+    tag = f"{os.getpid()}.tmp"
+    jobs = []
     try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-    except OSError as e:
-        raise KernelBuildError(f"cannot run {nvcc}: {e}") from e
-    if proc.returncode != 0:
-        raise KernelBuildError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, lib)
-    return lib, proc.stdout + proc.stderr
+        for src in sources():
+            obj = os.path.join(build_dir,
+                               f"{os.path.basename(src)[:-3]}.{tag}.o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+            jobs.append((obj, cmd, _start(cmd)))
+        log = [_finish(cmd, proc) for _, cmd, proc in jobs]
+        link = [nvcc, "-shared", "-o", f"{lib}.{tag}",
+                *(obj for obj, _, _ in jobs)]
+        log.append(_finish(link, _start(link)))
+    finally:
+        for obj, _, proc in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if os.path.exists(obj):
+                os.remove(obj)
+    os.replace(f"{lib}.{tag}", lib)
+    return lib, "".join(log)
 
 
 def _stale(lib: str) -> bool:

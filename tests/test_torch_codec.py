@@ -73,9 +73,9 @@ def test_torch_codec_signed_samples_round_trip():
 
 
 @pytest.mark.parametrize("cfg_kw,item", [
-    (dict(is_rgb=True, components=3), "item 7"),
-    (dict(bps=12, bit_depth=12), "item 7"),
-    (dict(is_lossy=True), "item 6"),
+    (dict(is_rgb=True, components=3, coding_passes=3), "item 8"),
+    (dict(bps=12, bit_depth=12, k_factor=2.0), "item 8"),
+    (dict(is_lossy=True, coding_passes=3), "item 8"),
     (dict(coding_passes=3), "item 8"),
     (dict(k_factor=4.0), "item 8"),
 ])
@@ -111,8 +111,9 @@ def test_cli_round_trip(tmp_path, lut_folder):
 
 
 @pytest.mark.parametrize("flags", [
-    ["-video", "1"], ["-sharded", "2"], ["-isRGB", "1"], ["-type", "1"],
-    ["-cp", "3"], ["-k", "2"], ["-bps", "12"],
+    ["-video", "1"], ["-sharded", "2"], ["-isRGB", "1", "-cp", "3"],
+    ["-type", "1", "-k", "2"], ["-cp", "3"], ["-k", "2"],
+    ["-bps", "12", "-cp", "3"],
 ])
 def test_cli_unported_flags_exit_2(tmp_path, capsys, flags):
     src = str(tmp_path / "in.pgm")
@@ -126,9 +127,10 @@ def test_cli_unported_flags_exit_2(tmp_path, capsys, flags):
 
 def test_cli_decode_of_unported_stream_exits_2(tmp_path, capsys):
     img = make_image(np.random.default_rng(1), 64, 64)
-    cfg = CodecConfig(width=64, height=64, wavelet_levels=1, is_lossy=True)
-    enc = tmp_path / "lossy.enc"
-    enc.write_bytes(oracle.encode_image(img, cfg, *_neutral(1))[0].tobytes())
+    cfg = CodecConfig(width=64, height=64, wavelet_levels=1, coding_passes=3)
+    enc = tmp_path / "cp3.enc"
+    enc.write_bytes(oracle.encode_image(
+        img, cfg, [neutral_lut(PARAMS, 1, 3)], PARAMS)[0].tobytes())
     rc = cli.main(["-cd", "1", "-i", str(enc), "-o", str(tmp_path / "d.pgm"),
                    "--device", "cpu"])
     assert rc == 2

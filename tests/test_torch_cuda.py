@@ -17,6 +17,7 @@ from picsong_tpu.core.lut import LUTParams, neutral_lut
 from picsong_tpu.reference import codec as oracle
 from picsong_tpu_torch.engine.pipeline import TorchCodec
 from picsong_tpu_torch.entropy import bpc, bpc_cuda
+from picsong_tpu_torch.tools import probe, probe2
 
 pytestmark = pytest.mark.cuda
 
@@ -102,3 +103,32 @@ def test_kernel_wrappers_reject_bad_inputs(cuda):
         bpc_cuda.decode_blocks(flat[1:].view(8, 4096),
                                torch.ones(8, dtype=torch.int32, device=cuda),
                                *dargs, params=PARAMS, n_planes=n_planes)
+
+
+@pytest.mark.parametrize("case", ["probe_inputs", "edges"])
+def test_probe_kernels_match_plain(cuda, case):
+    for module in (probe, probe2):
+        args = (module.inputs(0) if case == "probe_inputs"
+                else module.edge_inputs())
+        cpu = [torch.from_numpy(a) for a in args]
+        before = module.LAUNCHES
+        got = module.run(*(a.to(cuda) for a in cpu))
+        torch.cuda.synchronize()
+        assert module.LAUNCHES == before + 1
+        assert torch.equal(got.cpu(), module.plain(*cpu))
+
+
+def test_lossy_512_on_cuda_matches_oracle(cuda):
+    rng = np.random.default_rng(2)
+    y, x = np.mgrid[0:512, 0:512]
+    img = np.clip(120 + 70 * np.sin(x / 11.0) * np.cos(y / 17.0)
+                  + rng.normal(0, 6, size=(512, 512)), 0, 255).astype(np.uint8)
+    cfg = CodecConfig(width=512, height=512, wavelet_levels=3, is_lossy=True,
+                      qs=1.0)
+    luts = [neutral_lut(PARAMS, 3, 2)]
+    codec = TorchCodec(cfg, luts, PARAMS, cuda)
+    got = codec.encode(img)
+    want = oracle.encode_image(img, cfg, luts, PARAMS)
+    assert np.array_equal(got[0], want[0])
+    assert np.array_equal(codec.decode(got),
+                          oracle.decode_image(want, cfg, luts, PARAMS))

@@ -47,6 +47,21 @@ assert cli.main(["-cd", "0", "-i", d + "/in.pgm", "-o", d + "/o.enc",
 assert cli.main(["-cd", "1", "-i", d + "/o.enc", "-o", d + "/d.pgm",
                  "--device", "cpu"]) == 0
 assert np.array_equal(read_pgm(d + "/d.pgm"), img)
+assert cli.main(["-cd", "0", "-i", d + "/in.pgm", "-o", d + "/l.enc",
+                 "-wl", "2", "-type", "1", "--device", "cpu"]) == 0
+assert cli.main(["-cd", "1", "-i", d + "/l.enc", "-o", d + "/l.pgm",
+                 "--device", "cpu"]) == 0
+err = read_pgm(d + "/l.pgm").astype(float) - img
+assert 10 * np.log10(255.0 ** 2 / np.mean(err * err)) > 35.0
+with open(d + "/rgb.raw", "wb") as f:
+    for c in range(3):
+        f.write(np.roll(img, 7 * c, axis=1).tobytes())
+assert cli.main(["-cd", "0", "-i", d + "/rgb.raw", "-o", d + "/r.enc",
+                 "-xSize", "64", "-ySize", "64", "-isRGB", "1", "-wl", "1",
+                 "--device", "cpu"]) == 0
+assert cli.main(["-cd", "1", "-i", d + "/r.enc", "-o", d + "/r.raw",
+                 "--device", "cpu"]) == 0
+assert open(d + "/r.raw", "rb").read() == open(d + "/rgb.raw", "rb").read()
 loaded = sorted(m for m in sys.modules
                 if (m == "jax" or m.startswith("jax.")) and sys.modules[m])
 assert loaded == [], loaded
