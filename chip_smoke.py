@@ -7,7 +7,7 @@ Builds the port's kernels from picsong_tpu_torch/csrc with nvcc (one
 compiler per source, in parallel), holds each kernel equal to its plain
 PyTorch version on the card, holds the port's codestreams byte-equal to
 the NumPy oracle, and drives each of the port's paths through the CLI,
-reading the kernels' launch counts around each path:
+reading the kernels' launch counts (by coding mode) around each path:
 - gray lossless 5/3, 2048x2048 at 5 wavelet levels, neutral and trained
   LUTs (the main path; then every layer of it is timed);
 - the two probe kernels against their plain versions on the probes' own
@@ -18,14 +18,20 @@ reading the kernels' launch counts around each path:
 - planar RGB 2048x2560 (the reference's image workload), lossless RCT and
   lossy ICT;
 - 16-bit gray lossless, 2048x2048;
-on each of the new paths it also holds the BPC kernels equal to their
-plain versions on every component's codeblocks, at the path's n_planes
-and with the component's LUT; on the lossy ones it holds the card's
-quantized codeblocks, inverse DWT and decoded samples equal to a CPU
-TorchCodec's, and the CLI's decoded file equal to those samples. Then it
-times the device halves and CLI round trips of the new paths (the two
-cli.main calls alone). Every comparison is exact except the lossy PSNR
-floors, which are stated where they are checked.
+- gray lossless 2048x2048 wl=5 with three coding passes (-cp 3) and with
+  complexity scalability (-k 5, the JAX bench's cs_k5_2048), neutral and
+  trained LUTs, and gray lossy 2048x2048 wl=3 -k 5 with the trained lossy
+  LUT, after random batches and a 512x512 wl=1 byte check against the
+  oracle in both modes;
+on each path after the main one it also holds the BPC kernels equal to
+their plain versions on every component's codeblocks, at the path's
+n_planes and with the component's LUT; on the lossy ones it holds the
+card's quantized codeblocks, inverse DWT and decoded samples equal to a
+CPU TorchCodec's, and the CLI's decoded file equal to those samples. Then
+it times the device halves and CLI round trips of the paths (the two
+cli.main calls alone) and each kernel variant against its plain version.
+Every comparison is exact except the lossy PSNR floors, which are stated
+where they are checked.
 
 Exits non-zero, printing no result, when there is no CUDA device or any
 check fails. Otherwise its last two lines are a JSON object with each
@@ -38,6 +44,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -47,9 +54,12 @@ import time
 SIZE = 2048
 LEVELS = 5
 ITERS = 10
+PLAIN_ITERS = 3               # the plain BPC coder takes seconds a call
+KERNEL_BATCH = 20             # back-to-back launches per kernel timing
 LOSSY_LEVELS = 3              # BASELINE config 2
 RGB_W, RGB_H = 2048, 2560     # the reference's image workload
 PROBE_CALLS = 200
+K = 5.0                       # the JAX bench's cs_k5_2048
 
 
 def _require(ok: bool, what: str) -> None:
@@ -108,6 +118,7 @@ def main() -> int:
     from picsong_tpu_torch.tools import probe, probe2
 
     dev = torch.device("cuda")
+    modes = list(bpc_cuda.MODES)
     # ---- 1. device -------------------------------------------------------
     card = _run(["nvidia-smi", "--query-gpu=name,power.limit",
                  "--format=csv,noheader"]).splitlines()[0]
@@ -123,47 +134,65 @@ def main() -> int:
     kernels.library()
     print(f"{tag} kernel build {time.perf_counter() - t0:.2f} s")
     for line in log.splitlines():
-        if "Used" in line or "spill" in line:
+        entry = re.search(r"entry function '(\w+)'", line)
+        if entry:
+            # bpc kernels by their template arguments <CP, BULK>
+            t = re.search(r"(bpc_\w+_kernel)ILi(\d)ELb(\d)E", entry.group(1))
+            print("  ptxas:", f"{t.group(1)}<{t.group(2)}, "
+                  f"{'true' if t.group(3) == '1' else 'false'}>" if t
+                  else entry.group(1))
+        elif "Used" in line or "spill" in line:
             print("  ptxas:", line.strip())
 
-    err = {"encode": 0, "decode": 0}
+    # max abs error of each kernel variant against its plain version
+    err = {m: {"encode": 0, "decode": 0} for m in modes}
 
     def gpu(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
-    def compare_encode(blocks, args, params, n_planes, what):
-        s_k, n_k = bpc_cuda.encode_blocks(blocks, *args, params=params,
+    def mode_kw(lut_params, wl, cp=2, k=0.0):
+        return dict(params=lut_params, wavelet_levels=wl, coding_passes=cp,
+                    has_k=k > 0)
+
+    def compare_encode(blocks, args, kw, n_planes, what):
+        mode = bpc_cuda.mode_of(kw["coding_passes"], kw["has_k"])
+        s_k, n_k = bpc_cuda.encode_blocks(blocks, *args, **kw,
                                           n_planes=n_planes)
-        s_p, n_p = bpc.encode_blocks_plain(blocks, *args, params=params,
+        s_p, n_p = bpc.encode_blocks_plain(blocks, *args, **kw,
                                            n_planes=n_planes)
         torch.cuda.synchronize()
         e = max(int((s_k.long() - s_p.long()).abs().max()),
                 int((n_k.long() - n_p.long()).abs().max()))
-        err["encode"] = max(err["encode"], e)
-        _require(e == 0, f"encode kernel == plain ({what}), max err {e}")
+        err[mode]["encode"] = max(err[mode]["encode"], e)
+        _require(e == 0, f"{mode} encode kernel == plain ({what}), max err {e}")
         return s_k, n_k
 
-    def compare_decode(streams, sizes, args, params, n_planes, want, what):
-        o_k = bpc_cuda.decode_blocks(streams, sizes, *args, params=params,
+    def compare_decode(streams, sizes, args, kw, n_planes, want, what):
+        mode = bpc_cuda.mode_of(kw["coding_passes"], kw["has_k"])
+        o_k = bpc_cuda.decode_blocks(streams, sizes, *args, **kw,
                                      n_planes=n_planes)
-        o_p = bpc.decode_blocks_plain(streams, sizes, *args, params=params,
+        o_p = bpc.decode_blocks_plain(streams, sizes, *args, **kw,
                                       n_planes=n_planes)
         torch.cuda.synchronize()
         e = int((o_k.long() - o_p.long()).abs().max())
-        err["decode"] = max(err["decode"], e)
-        _require(e == 0, f"decode kernel == plain ({what}), max err {e}")
-        _require(torch.equal(o_k, want), f"decode == input ({what})")
+        err[mode]["decode"] = max(err[mode]["decode"], e)
+        _require(e == 0, f"{mode} decode kernel == plain ({what}), max err {e}")
+        _require(torch.equal(o_k, want), f"{mode} decode == input ({what})")
 
     # ---- 3. kernel vs plain on random batches ----------------------------
     params = LUTParams()
     wl = 2
-    lut = neutral_lut(params, wl, 2)
-    lut = lut + (np.arange(lut.size, dtype=np.int32) % 41)
     n = 256
     levels = (np.arange(n) % (wl + 1)).astype(np.int32)
     subbands = np.where(levels == wl, 0, np.arange(n) % 3).astype(np.int32)
-    meta = bpc.block_metadata(levels, subbands, params, wl, 2, 0.0)
-    args = [gpu(a) for a in (lut, meta["ref"], meta["sig"], meta["sign"])]
+
+    def batch_args(lut, cp, k):
+        meta = bpc._meta_args(levels, subbands, params, wl, cp, k)
+        return [gpu(a) for a in (lut, *meta)], mode_kw(params, wl, cp, k)
+
+    lut = neutral_lut(params, wl, 2)
+    lut = lut + (np.arange(lut.size, dtype=np.int32) % 41)
+    args, kw = batch_args(lut, 2, 0.0)
     for seed in (0, 1, 2):
         for maxmag in (7, 200, 30000):
             rng = np.random.default_rng(seed)
@@ -176,29 +205,71 @@ def main() -> int:
             n_planes = bpc.planes_for_magnitude(int(np.abs(blocks).max()))
             b = gpu(blocks)
             what = f"seed {seed} maxmag {maxmag}"
-            s, z = compare_encode(b, args, params, n_planes, what)
+            s, z = compare_encode(b, args, kw, n_planes, what)
             _require(int(z[5]) == 4096 and int(z[3]) == 1,
                      f"raw fallback and empty block exercised ({what})")
-            compare_decode(s, z, args, params, n_planes, b, what)
-    print(f"{tag} random batches: 9 x {n} codeblocks, kernels byte-equal to "
-          f"plain (max abs err encode {err['encode']}, decode "
-          f"{err['decode']}), decode == input")
+            compare_decode(s, z, args, kw, n_planes, b, what)
+    print(f"{tag} random batches cp=2: 9 x {n} codeblocks, kernels "
+          f"byte-equal to plain (max abs err encode {err['cp2']['encode']}, "
+          f"decode {err['cp2']['decode']}), decode == input")
+
+    # cp=3 and k > 0: a random LUT favouring zeros (every group table with
+    # k), an empty block (3), a raw-fallback block (5), a block with MSB 0
+    # (6), and with k a sparse block with MSB 15 (9) whose split plane
+    # puts its group past the 15 group tables
+    for cp, k, maxmag in ((3, 0.0, 200), (2, 1.0, 900), (2, 5.0, 200),
+                          (2, 8.0, 2000)):
+        rng = np.random.default_rng(10 + cp + int(k))
+        blocks = rng.integers(-maxmag, maxmag + 1, size=(n, 64, 64),
+                              dtype=np.int32)
+        blocks[rng.random(blocks.shape) < 0.7] = 0
+        blocks[3] = 0
+        blocks[5] = rng.integers(-30000, 30001, size=(64, 64), dtype=np.int32)
+        blocks[6] = rng.integers(-1, 2, size=(64, 64), dtype=np.int32)
+        if k > 0:
+            blocks[9] = np.where(rng.random((64, 64)) < 0.02, 32768, 0)
+            blocks[9, 0, 0] = -65535
+        groups = params.n_bitplane_files if k > 0 else 1
+        lut_r = rng.integers(64, 120, size=params.size_per_group(wl, cp)
+                             * groups).astype(np.int32)
+        args_r, kw_r = batch_args(lut_r, cp, k)
+        n_planes = bpc.planes_for_magnitude(int(np.abs(blocks).max()))
+        b = gpu(blocks)
+        what = f"cp={cp} k={k} maxmag {maxmag}"
+        s, z = compare_encode(b, args_r, kw_r, n_planes, what)
+        msb = s[:, 0].cpu().numpy()
+        _require(int(z[3]) == 1 and int(z[5]) == 4096
+                 and msb[6] == 0 and int(z[6]) < 4096,
+                 f"empty, raw-fallback and MSB-0 blocks exercised ({what})")
+        if k > 0:
+            consec = np.floor(np.float32(msb[9])
+                              * args_r[6][9].cpu().numpy())
+            _require(msb[9] == 15 and int(z[9]) < 4096
+                     and (k < 5 or consec >= 15),
+                     f"MSB-15 block exercised, split plane {consec} ({what})")
+        compare_decode(s, z, args_r, kw_r, n_planes, b, what)
+    print(f"{tag} random batches cp=3, k=1, 5, 8: 4 x {n} codeblocks, random "
+          f"LUTs; kernels byte-equal to plain (max abs err cp3 "
+          f"{err['cp3']}, bulk {err['bulk']}), decode == input")
 
     # ---- 4. oracle check at BASELINE config 1 (512^2, wl=1) ---------------
     img512 = make_image(512)
-    cfg1 = CodecConfig(width=512, height=512, wavelet_levels=1)
-    luts1 = [neutral_lut(params, 1, 2)]
-    codec1 = TorchCodec(cfg1, luts1, params, dev)
-    got = codec1.encode(img512)[0]
-    t0 = time.perf_counter()
-    want = oracle_codec.encode_image(img512, cfg1, luts1, params)[0]
-    oracle_s = time.perf_counter() - t0
-    _require(np.array_equal(got, want), "512^2 wl=1 codestream == oracle")
-    _require(np.array_equal(codec1.decode([got]), img512),
-             "512^2 wl=1 decode bit-exact")
-    print(f"{tag} 512^2 wl=1: codestream byte-equal to the NumPy oracle "
-          f"({got.size} shorts; oracle took {oracle_s:.1f} s on the host), "
-          "decode bit-exact")
+    for cp, k in ((2, 0.0), (3, 0.0), (2, K)):
+        cfg1 = CodecConfig(width=512, height=512, wavelet_levels=1,
+                           coding_passes=cp, k_factor=k)
+        luts1, params1 = cli._load_luts("neutral", 1, cp, k)
+        codec1 = TorchCodec(cfg1, luts1, params1, dev)
+        got = codec1.encode(img512)[0]
+        t0 = time.perf_counter()
+        want = oracle_codec.encode_image(img512, cfg1, luts1, params1)[0]
+        oracle_s = time.perf_counter() - t0
+        _require(np.array_equal(got, want),
+                 f"512^2 wl=1 cp={cp} k={k} codestream == oracle")
+        _require(np.array_equal(codec1.decode([got]), img512),
+                 f"512^2 wl=1 cp={cp} k={k} decode bit-exact")
+        print(f"{tag} 512^2 wl=1 -cp {cp} -k {k:g}: codestream byte-equal to "
+              f"the NumPy oracle ({got.size} shorts; oracle took "
+              f"{oracle_s:.1f} s on the host), decode bit-exact")
 
     # ---- 5. the slice at 2048^2 wl=5 through the CLI ----------------------
     img = make_image(SIZE)
@@ -208,47 +279,73 @@ def main() -> int:
 
     def cli_pair(job):
         """One CLI encode and decode (the timed round trip: no read-back, no
-        check); resets the BPC launch counts first and returns them."""
-        enc_args, dec_args, what = job
-        bpc_cuda.ENCODE_LAUNCHES = bpc_cuda.DECODE_LAUNCHES = 0
+        check). Sets every BPC launch count to 0 first, reads them after,
+        and returns the launches of the job's mode; no other mode may have
+        launched."""
+        enc_args, dec_args, what, mode = job
+        bpc_cuda.reset_launches()
         _require(cli.main(["-cd", "0", *enc_args]) == 0, f"CLI encode {what}")
         _require(cli.main(["-cd", "1", *dec_args]) == 0, f"CLI decode {what}")
-        got = {"encode": bpc_cuda.ENCODE_LAUNCHES,
-               "decode": bpc_cuda.DECODE_LAUNCHES}
+        got = {"encode": bpc_cuda.ENCODE_LAUNCHES[mode],
+               "decode": bpc_cuda.DECODE_LAUNCHES[mode]}
         _require(got["encode"] > 0 and got["decode"] > 0,
-                 f"{what} path launched both BPC kernels {got}")
+                 f"{what} path launched both {mode} BPC kernels {got}")
+        others = sum(bpc_cuda.ENCODE_LAUNCHES[m] + bpc_cuda.DECODE_LAUNCHES[m]
+                     for m in modes if m != mode)
+        _require(others == 0, f"{what} path launched only its {mode} kernels")
         return got
 
-    def gray_job(lut_folder, lossy=False):
+    def gray_job(lut_folder, lossy=False, cp=2, k=0.0):
         """(codestream path, decoded path, cli_pair job) of a gray round
         trip of `src`: lossless wl=5, or lossy wl=3 qs=1."""
-        name = f"lossy_{lut_folder}" if lossy else lut_folder
+        name = (f"{'lossy_' if lossy else ''}{lut_folder}_cp{cp}_k{k:g}")
         enc = os.path.join(tmp.name, f"{name}.enc")
         dec = os.path.join(tmp.name, f"{name}.pgm")
-        kind = ["-wl", str(LOSSY_LEVELS), "-cp", "2", "-type", "1", "-qs",
-                "1"] if lossy else ["-wl", str(LEVELS), "-cp", "2", "-type",
-                                    "0"]
+        kind = ["-wl", str(LOSSY_LEVELS), "-cp", str(cp), "-type", "1", "-qs",
+                "1"] if lossy else ["-wl", str(LEVELS), "-cp", str(cp),
+                                    "-type", "0"]
         return enc, dec, (["-i", src, "-o", enc, *kind, "-video", "0", "-k",
-                           "0", "-LUTFolder", lut_folder],
+                           f"{k:g}", "-LUTFolder", lut_folder],
                           ["-i", enc, "-o", dec, "-video", "0", "-LUTFolder",
                            lut_folder],
-                          f"{'lossy' if lossy else 'lossless'} {lut_folder}")
+                          f"{'lossy' if lossy else 'lossless'} {lut_folder} "
+                          f"-cp {cp} -k {k:g}", bpc_cuda.mode_of(cp, k > 0))
 
-    launches = {"encode": 0, "decode": 0}
-    exact = {}
+    def add(total, got):
+        return {d: total[d] + got[d] for d in total}
+
+    # launches of each kernel variant on the paths that carry it
+    launches = {m: {"encode": 0, "decode": 0} for m in modes}
+    exact, enc_bytes = {}, {}
     for lut_folder in ("neutral", "trained"):
-        _, dec, job = gray_job(lut_folder)
-        got = cli_pair(job)
-        launches = {k: launches[k] + got[k] for k in launches}
+        enc, dec, job = gray_job(lut_folder)
+        launches["cp2"] = add(launches["cp2"], cli_pair(job))
         exact[lut_folder] = np.array_equal(read_pgm(dec), img)
+        enc_bytes[lut_folder] = os.path.getsize(enc)
     _require(all(exact.values()), f"2048^2 CLI round trips bit-exact {exact}")
-    _require(launches["encode"] > 0 and launches["decode"] > 0,
-             f"main path launched both kernels {launches}")
-    enc_bytes = {f: os.path.getsize(os.path.join(tmp.name, f"{f}.enc"))
-                 for f in exact}
     print(f"{tag} {SIZE}^2 wl={LEVELS} CLI round trips bit-exact: neutral "
           f"{enc_bytes['neutral']} B, trained {enc_bytes['trained']} B; "
-          f"kernel launches on the main path {launches}")
+          f"kernel launches on the main path {launches['cp2']}")
+
+    def oracle_picks(label, c, blocks, streams, sizes, lut, cp=2, k=0.0):
+        """The first codeblock of every level and subband of a gray plane
+        (LL included) byte-equal to the oracle's encode_codeblock."""
+        lv, sb = codeblock_bands(c.aw, c.ah, c.cfg.wavelet_levels)
+        picks = sorted({(int(a), int(s_)): i
+                        for i, (a, s_) in reversed(list(enumerate(zip(lv, sb))))
+                        }.items())
+        _require(len(picks) == 3 * c.cfg.wavelet_levels + 1,
+                 "every level and subband picked")
+        blocks_np, streams_np = blocks.cpu().numpy(), streams.cpu().numpy()
+        for (level, subband), i in picks:
+            want_s, want_n = oracle_bpc.encode_codeblock(
+                blocks_np[i], level, subband, lut, c.params,
+                c.cfg.wavelet_levels, coding_passes=cp, k_factor=k)
+            _require(int(sizes[i]) == want_n
+                     and np.array_equal(streams_np[i], want_s),
+                     f"{label}: codeblock {i} (level {level}, subband "
+                     f"{subband}) == oracle")
+        return len(picks)
 
     cfg = CodecConfig(width=SIZE, height=SIZE, wavelet_levels=LEVELS)
     luts = [neutral_lut(params, LEVELS, 2)]
@@ -256,31 +353,24 @@ def main() -> int:
     samples = gpu(img)
     blocks, max_mag = codec._dwt_tile_impl(codec._prep_gray_impl(samples))
     n_planes = bpc.planes_for_magnitude(int(max_mag))
-    pargs = codec._bpc_args()
-    streams, sizes = compare_encode(blocks, pargs, params, n_planes,
+    pargs, pkw = codec._bpc_args(), codec._bpc_kw
+    streams, sizes = compare_encode(blocks, pargs, pkw, n_planes,
                                     f"{SIZE}^2 plane")
-    compare_decode(streams, sizes, pargs, params, n_planes, blocks,
+    compare_decode(streams, sizes, pargs, pkw, n_planes, blocks,
                    f"{SIZE}^2 plane")
-    lv, sb = codeblock_bands(SIZE, SIZE, LEVELS)
-    picks = sorted({(int(a), int(c)): i
-                    for i, (a, c) in reversed(list(enumerate(zip(lv, sb))))
-                    }.items())
-    _require(len(picks) == 3 * LEVELS + 1, "every level and subband picked")
-    blocks_np, streams_np = blocks.cpu().numpy(), streams.cpu().numpy()
-    for (level, subband), i in picks:
-        want_s, want_n = oracle_bpc.encode_codeblock(
-            blocks_np[i], level, subband, luts[0], params, LEVELS)
-        _require(int(sizes[i]) == want_n
-                 and np.array_equal(streams_np[i], want_s),
-                 f"codeblock {i} (level {level}, subband {subband}) == oracle")
+    n_picks = oracle_picks(f"{SIZE}^2 plane", codec, blocks, streams, sizes,
+                           luts[0])
     print(f"{tag} {SIZE}^2 plane: {blocks.shape[0]} codeblocks, n_planes "
-          f"{n_planes}, kernels byte-equal to plain; {len(picks)} codeblocks "
+          f"{n_planes}, kernels byte-equal to plain; {n_picks} codeblocks "
           "(LL and every level/subband) byte-equal to the oracle")
 
     # ---- 6. times ----------------------------------------------------------
     mpix = SIZE * SIZE / 1e6
 
-    def device_ms(fn, iters=ITERS, warm=2):
+    def device_ms(fn, iters=ITERS, warm=2, per=1):
+        """CUDA-event times of `fn`; with `per` > 1, of `per` back-to-back
+        calls divided by `per`, which keeps the wrapper's host time out of
+        a kernel's time."""
         for _ in range(warm):
             fn()
         torch.cuda.synchronize()
@@ -289,10 +379,11 @@ def main() -> int:
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
             a.record()
-            fn()
+            for _ in range(per):
+                fn()
             b.record()
             torch.cuda.synchronize()
-            out.append(a.elapsed_time(b))
+            out.append(a.elapsed_time(b) / per)
         return out
 
     def host_ms(fn, iters=ITERS, warm=1):
@@ -314,31 +405,45 @@ def main() -> int:
               f"max {max(samples):.4f} over {len(samples)}{per}")
         return ms
 
-    t = {}
-    t["device encode"] = report(
-        f"device encode {SIZE}^2 wl={LEVELS} (samples -> streams)",
-        host_ms(lambda: codec.encode_planes([samples])))
-    t["device decode"] = report(
-        f"device decode {SIZE}^2 wl={LEVELS} (streams -> samples)",
-        host_ms(lambda: codec.decode_planes([(streams, sizes, n_planes)])))
-    t["cli"] = report(f"CLI round trip {SIZE}^2 wl={LEVELS} neutral LUT "
-                      "(file -> file -> file)",
-                      host_ms(lambda: cli_pair(gray_job("neutral")[2])))
-    enc_kernel = device_ms(
-        lambda: bpc_cuda.encode_blocks(blocks, *pargs, params=params,
-                                       n_planes=n_planes))
-    dec_kernel = device_ms(
-        lambda: bpc_cuda.decode_blocks(streams, sizes, *pargs, params=params,
-                                       n_planes=n_planes))
-    t["enc kernel"] = report("BPC encode kernel", enc_kernel)
-    t["dec kernel"] = report("BPC decode kernel", dec_kernel)
-    t["enc plain"] = report("BPC encode plain PyTorch on the card", device_ms(
-        lambda: bpc.encode_blocks_plain(blocks, *pargs, params=params,
-                                        n_planes=n_planes), warm=1))
-    t["dec plain"] = report("BPC decode plain PyTorch on the card", device_ms(
-        lambda: bpc.decode_blocks_plain(streams, sizes, *pargs,
-                                        params=params, n_planes=n_planes),
-        warm=1))
+    # each variant's kernel and plain times at 2048^2 wl=5 (1024 codeblocks)
+    kt = {}
+
+    def kernel_times(mode, c, blocks, streams, sizes, n_pl):
+        """CUDA-event times of the mode's two kernels (KERNEL_BATCH
+        launches back to back) and of their plain versions on one plane;
+        returns the kernels' samples."""
+        a, kw = c._bpc_args(), c._bpc_kw
+        enc = device_ms(lambda: bpc_cuda.encode_blocks(blocks, *a, **kw,
+                                                       n_planes=n_pl),
+                        per=KERNEL_BATCH)
+        dec = device_ms(lambda: bpc_cuda.decode_blocks(streams, sizes, *a,
+                                                       **kw, n_planes=n_pl),
+                        per=KERNEL_BATCH)
+        kt[mode] = {
+            "encode": report(f"BPC encode kernel {mode}", enc),
+            "decode": report(f"BPC decode kernel {mode}", dec),
+            "encode plain": report(
+                f"BPC encode plain PyTorch on the card {mode}", device_ms(
+                    lambda: bpc.encode_blocks_plain(blocks, *a, **kw,
+                                                    n_planes=n_pl),
+                    iters=PLAIN_ITERS, warm=1)),
+            "decode plain": report(
+                f"BPC decode plain PyTorch on the card {mode}", device_ms(
+                    lambda: bpc.decode_blocks_plain(streams, sizes, *a, **kw,
+                                                    n_planes=n_pl),
+                    iters=PLAIN_ITERS, warm=1)),
+        }
+        return enc, dec
+
+    report(f"device encode {SIZE}^2 wl={LEVELS} (samples -> streams)",
+           host_ms(lambda: codec.encode_planes([samples])))
+    report(f"device decode {SIZE}^2 wl={LEVELS} (streams -> samples)",
+           host_ms(lambda: codec.decode_planes([(streams, sizes, n_planes)])))
+    report(f"CLI round trip {SIZE}^2 wl={LEVELS} neutral LUT "
+           "(file -> file -> file)",
+           host_ms(lambda: cli_pair(gray_job("neutral")[2])))
+    enc_kernel, dec_kernel = kernel_times("cp2", codec, blocks, streams,
+                                          sizes, n_planes)
 
     # per-layer breakdown of the host API round trip
     from picsong_tpu import native
@@ -408,21 +513,29 @@ def main() -> int:
     print(f"{tag} probe entry points: kernel launches {probe_launches}")
 
     # ---- 8. lossy 9/7 gray, BASELINE config 2 (2048^2 wl=3 qs=1) ---------
-    def check_planes(label, cfg, luts, lut_params, planes, host):
+    def check_planes(label, cfg, luts, lut_params, planes, host,
+                     picks=False):
         """A path's planes on the card: each component's BPC kernels against
         their plain versions at the path's shapes, n_planes and LUT; with
         `host`, also the card's quantized codeblocks, inverse DWT and decoded
-        samples against a CPU TorchCodec's. Returns the decoded planes."""
+        samples against a CPU TorchCodec's; with `picks`, one codeblock of
+        every band against the oracle. Returns the decoded planes, the
+        codec, its codeblocks and streams per component, and n_planes."""
         c = TorchCodec(cfg, luts, lut_params, dev)
         tiled = [c._dwt_tile_impl(x)
                  for x in c._prep_impl([gpu(p) for p in planes])]
         n_pl = bpc.planes_for_magnitude(max(int(m) for _, m in tiled))
+        coded = []
         for i, (blocks, _) in enumerate(tiled):
             what = f"{label} component {i}"
-            s_, z_ = compare_encode(blocks, c._bpc_args(i), lut_params, n_pl,
+            s_, z_ = compare_encode(blocks, c._bpc_args(i), c._bpc_kw, n_pl,
                                     what)
-            compare_decode(s_, z_, c._bpc_args(i), lut_params, n_pl, blocks,
+            compare_decode(s_, z_, c._bpc_args(i), c._bpc_kw, n_pl, blocks,
                            what)
+            coded.append((s_, z_))
+        n_picks = (oracle_picks(label, c, tiled[0][0], *coded[0], luts[0],
+                                cfg.coding_passes, cfg.k_factor)
+                   if picks else 0)
         comps = [c._untile_idwt_impl(b) for b, _ in tiled]
         out = [o.cpu() for o in c._finish_impl(comps)]
         if host:
@@ -445,30 +558,38 @@ def main() -> int:
               f"codeblocks, n_planes {n_pl}; kernels byte-equal to plain on "
               "every component" + ("; quantized codeblocks, inverse DWT and "
                                    "decoded samples equal to the host port's"
-                                   if host else ""))
-        return [o.numpy() for o in out]
+                                   if host else "")
+              + (f"; {n_picks} codeblocks (LL and every level/subband) "
+                 "byte-equal to the oracle" if picks else ""))
+        return ([o.numpy() for o in out], c, [b for b, _ in tiled], coded,
+                n_pl)
 
     def same_planes(back, out):
         return all(np.array_equal(b, o[:b.shape[0], :b.shape[1]])
                    for b, o in zip(back, out))
 
+    def lossy_cli(lut_folder, out_l, k=0.0):
+        enc, dec, job = gray_job(lut_folder, lossy=True, k=k)
+        got = cli_pair(job)
+        back = read_pgm(dec)
+        _require(same_planes([back], out_l),
+                 f"lossy {lut_folder} -k {k:g}: CLI decode == the "
+                 "host-checked card decode")
+        db = psnr(back, img)
+        _require(db > 40.0, f"lossy {lut_folder} -k {k:g} PSNR {db:.2f} dB "
+                 "> 40")
+        print(f"{tag} {SIZE}^2 wl={LOSSY_LEVELS} lossy -k {k:g} CLI round "
+              f"trip, {lut_folder} LUT: PSNR {db:.4f} dB, "
+              f"{os.path.getsize(enc)} B; kernel launches {got}")
+        return got
+
     cfg_l = CodecConfig(width=SIZE, height=SIZE,
                         wavelet_levels=LOSSY_LEVELS, is_lossy=True, qs=1.0)
     luts_l = [neutral_lut(params, LOSSY_LEVELS, 2)]
     out_l = check_planes(f"{SIZE}^2 lossy plane", cfg_l, luts_l, params,
-                         [img], host=True)
+                         [img], host=True)[0]
     for lut_folder in ("neutral", "trained"):
-        enc, dec, job = gray_job(lut_folder, lossy=True)
-        n = cli_pair(job)
-        back = read_pgm(dec)
-        _require(same_planes([back], out_l),
-                 f"lossy {lut_folder}: CLI decode == the host-checked card "
-                 "decode")
-        db = psnr(back, img)
-        _require(db > 40.0, f"lossy {lut_folder} PSNR {db:.2f} dB > 40")
-        print(f"{tag} {SIZE}^2 wl={LOSSY_LEVELS} lossy CLI round trip, "
-              f"{lut_folder} LUT: PSNR {db:.4f} dB, {os.path.getsize(enc)} B; "
-              f"kernel launches {n}")
+        lossy_cli(lut_folder, out_l)
 
     cfg_l512 = CodecConfig(width=512, height=512,
                            wavelet_levels=LOSSY_LEVELS, is_lossy=True, qs=1.0)
@@ -504,14 +625,14 @@ def main() -> int:
                            "-LUTFolder", "trained"],
                           ["-i", enc, "-o", dec, "-video", "0", "-LUTFolder",
                            "trained"],
-                          f"RGB {'lossy' if lossy else 'lossless'}")
+                          f"RGB {'lossy' if lossy else 'lossless'}", "cp2")
 
     def rgb_cli(lossy):
         enc, dec, job = rgb_job(lossy)
-        n = cli_pair(job)
+        got = cli_pair(job)
         back = [read_raw_frame(dec, RGB_W, RGB_H, c, np.uint8)
                 for c in range(3)]
-        return n, back, os.path.getsize(enc)
+        return got, back, os.path.getsize(enc)
 
     cfg_rgb = CodecConfig(width=RGB_W, height=RGB_H, wavelet_levels=LEVELS,
                           is_rgb=True, components=3)
@@ -520,22 +641,22 @@ def main() -> int:
                             is_rgb=True, components=3, is_lossy=True, qs=1.0)
     luts_rgb_l, params_rgb_l = cli._load_luts("trained", LEVELS, 2, 0.0,
                                               lossy=True)
-    n, back, nbytes = rgb_cli(False)
+    got, back, nbytes = rgb_cli(False)
     _require(all(np.array_equal(b, p) for b, p in zip(back, rgb)),
              "RGB lossless CLI round trip bit-exact")
     print(f"{tag} RGB {RGB_W}x{RGB_H} wl={LEVELS} lossless CLI round trip "
-          f"bit-exact, {nbytes} B; kernel launches {n}")
+          f"bit-exact, {nbytes} B; kernel launches {got}")
     out = check_planes(f"RGB {RGB_W}x{RGB_H} lossless", cfg_rgb, luts_rgb,
-                       params_rgb, rgb, host=False)
+                       params_rgb, rgb, host=False)[0]
     _require(same_planes(back, out), "RGB lossless: CLI == card decode")
-    n, back, nbytes = rgb_cli(True)
+    got, back, nbytes = rgb_cli(True)
     dbs = [psnr(b, p) for b, p in zip(back, rgb)]
     _require(min(dbs) > 30.0, f"RGB lossy PSNR {dbs} > 30 dB")
     print(f"{tag} RGB {RGB_W}x{RGB_H} wl={LEVELS} lossy CLI round trip: "
           f"PSNR R {dbs[0]:.4f}, G {dbs[1]:.4f}, B {dbs[2]:.4f} dB, "
-          f"{nbytes} B; kernel launches {n}")
+          f"{nbytes} B; kernel launches {got}")
     out = check_planes(f"RGB {RGB_W}x{RGB_H} lossy", cfg_rgb_l, luts_rgb_l,
-                       params_rgb_l, rgb, host=True)
+                       params_rgb_l, rgb, host=True)[0]
     _require(same_planes(back, out),
              "RGB lossy: CLI decode == the host-checked card decode")
 
@@ -551,20 +672,58 @@ def main() -> int:
               "-type", "0", "-video", "0", "-k", "0", "-LUTFolder",
               "neutral"],
              ["-i", enc16, "-o", dec16, "-video", "0", "-LUTFolder",
-              "neutral"], "16-bit")
-    n = cli_pair(job16)
+              "neutral"], "16-bit", "cp2")
+    got = cli_pair(job16)
     back16 = read_raw_frame(dec16, SIZE, SIZE, 0, dt16)
     _require(back16.dtype == np.uint16 and np.array_equal(back16, img16),
              "16-bit CLI round trip bit-exact")
     print(f"{tag} {SIZE}^2 16-bit wl={LEVELS} lossless CLI round trip "
-          f"bit-exact, {os.path.getsize(enc16)} B; kernel launches {n}")
+          f"bit-exact, {os.path.getsize(enc16)} B; kernel launches {got}")
     cfg16 = CodecConfig(width=SIZE, height=SIZE, wavelet_levels=LEVELS,
                         bit_depth=16, bps=16)
     out = check_planes(f"{SIZE}^2 16-bit plane", cfg16, luts, params,
-                       [img16], host=False)
+                       [img16], host=False)[0]
     _require(same_planes([back16], out), "16-bit: CLI == card decode")
 
-    # ---- 11. times of the new paths (no plain BPC here: seconds a call) --
+    # ---- 11. three coding passes (-cp 3) and -k 5, 2048^2 ----------------
+    # gray lossless wl=5, neutral and trained LUTs, each path's launches
+    # counted around its own CLI round trip; then lossy wl=3 -k 5 with the
+    # trained lossy LUT, held to a CPU TorchCodec as the other lossy paths
+    new_paths = {}
+    for mode, cp, k in (("cp3", 3, 0.0), ("bulk", 2, K)):
+        for lut_folder in ("neutral", "trained"):
+            enc, dec, job = gray_job(lut_folder, cp=cp, k=k)
+            got = cli_pair(job)
+            launches[mode] = add(launches[mode], got)
+            _require(np.array_equal(read_pgm(dec), img),
+                     f"2048^2 -cp {cp} -k {k:g} {lut_folder} CLI round trip "
+                     "bit-exact")
+            print(f"{tag} {SIZE}^2 wl={LEVELS} -cp {cp} -k {k:g} "
+                  f"{lut_folder} LUT CLI round trip bit-exact, "
+                  f"{os.path.getsize(enc)} B; kernel launches {got}")
+            cfg_m = CodecConfig(width=SIZE, height=SIZE,
+                                wavelet_levels=LEVELS, coding_passes=cp,
+                                k_factor=k)
+            luts_m, params_m = cli._load_luts(lut_folder, LEVELS, cp, k)
+            label = f"{SIZE}^2 -cp {cp} -k {k:g} {lut_folder} plane"
+            checked = check_planes(label, cfg_m, luts_m, params_m, [img],
+                                   host=False, picks=True)
+            _require(same_planes([img], checked[0]),
+                     f"{label}: card decode == input")
+            if lut_folder == "neutral":
+                new_paths[mode] = (cfg_m, luts_m, params_m, job, checked)
+    cfg_lk = CodecConfig(width=SIZE, height=SIZE,
+                         wavelet_levels=LOSSY_LEVELS, is_lossy=True, qs=1.0,
+                         k_factor=K)
+    luts_lk, params_lk = cli._load_luts("trained", LOSSY_LEVELS, 2, K,
+                                        lossy=True)
+    out_lk = check_planes(f"{SIZE}^2 lossy -k {K:g} trained plane", cfg_lk,
+                          luts_lk, params_lk, [img], host=True)[0]
+    launches["bulk"] = add(launches["bulk"], lossy_cli("trained", out_lk, K))
+    print(f"{tag} kernel launches on the -cp 3 paths {launches['cp3']}, on "
+          f"the -k {K:g} paths {launches['bulk']}")
+
+    # ---- 12. times of the paths after the main one -----------------------
     def path_times(label, cfg, luts, lut_params, planes, job):
         """Layer, device and CLI times of a path; the CLI round trip is the
         two cli.main calls alone (no read-back, no check)."""
@@ -581,15 +740,13 @@ def main() -> int:
                 lambda: [c._dwt_tile_impl(x) for x in c._prep_impl(smp)]),
             "BPC encode kernel": device_ms(
                 lambda: [bpc_cuda.encode_blocks(b, *c._bpc_args(i),
-                                                params=lut_params,
-                                                n_planes=n_pl)
+                                                **c._bpc_kw, n_planes=n_pl)
                          for i, b in enumerate(blocks)]),
             "D2H streams+sizes": host_ms(
                 lambda: [(s_.cpu(), z_.cpu()) for s_, z_ in coded]),
             "BPC decode kernel": device_ms(
                 lambda: [bpc_cuda.decode_blocks(s_, z_, *c._bpc_args(i),
-                                                params=lut_params,
-                                                n_planes=n_pl)
+                                                **c._bpc_kw, n_planes=n_pl)
                          for i, (s_, z_) in enumerate(coded)]),
             "untile+IDWT+finish": device_ms(
                 lambda: c._finish_impl([c._untile_idwt_impl(b)
@@ -611,20 +768,37 @@ def main() -> int:
     path_times(f"RGB {RGB_W}x{RGB_H} lossy", cfg_rgb_l, luts_rgb_l,
                params_rgb_l, rgb, rgb_job(True)[2])
     path_times(f"16-bit {SIZE}^2", cfg16, luts, params, [img16], job16)
+    for mode, (cfg_m, luts_m, params_m, job, checked) in new_paths.items():
+        cp, k = cfg_m.coding_passes, cfg_m.k_factor
+        path_times(f"{SIZE}^2 wl={LEVELS} -cp {cp} -k {k:g} neutral", cfg_m,
+                   luts_m, params_m, [img], job)
+        _, c, blocks_m, coded_m, n_pl = checked
+        kernel_times(mode, c, blocks_m[0], *coded_m[0], n_pl)
+    path_times(f"lossy {SIZE}^2 wl={LOSSY_LEVELS} -k {K:g} trained", cfg_lk,
+               luts_lk, params_lk, [img],
+               gray_job("trained", lossy=True, k=K)[2])
     tmp.cleanup()
 
     src_dir = "picsong_tpu_torch/csrc"
-    print(json.dumps({"kernels": [
-        {"name": "bpc_encode", "route": "cuda",
-         "source": f"{src_dir}/bpc_encode.cu",
-         "replaces": "picsong_tpu/entropy/bpc_pallas.py:394",
-         "launches": launches["encode"], "max_abs_err": err["encode"],
-         "ms": t["enc kernel"], "plain_ms": t["enc plain"]},
-        {"name": "bpc_decode", "route": "cuda",
-         "source": f"{src_dir}/bpc_decode.cu",
-         "replaces": "picsong_tpu/entropy/bpc_pallas.py:707",
-         "launches": launches["decode"], "max_abs_err": err["decode"],
-         "ms": t["dec kernel"], "plain_ms": t["dec plain"]},
+    jax_src = "picsong_tpu/entropy/bpc_jax.py"
+    replaces = {
+        ("cp2", "encode"): "picsong_tpu/entropy/bpc_pallas.py:394",
+        ("cp2", "decode"): "picsong_tpu/entropy/bpc_pallas.py:707",
+        # the cleanup pass's row body (with _spp_row_body's three_cp, :307)
+        ("cp3", "encode"): f"{jax_src}:450", ("cp3", "decode"): f"{jax_src}:450",
+        # the fused multi-bitplane pass
+        ("bulk", "encode"): f"{jax_src}:537", ("bulk", "decode"): f"{jax_src}:537",
+    }
+    entries = []
+    for mode in modes:
+        for d in ("encode", "decode"):
+            entries.append({
+                "name": f"bpc_{d}" + ("" if mode == "cp2" else f"_{mode}"),
+                "route": "cuda", "source": f"{src_dir}/bpc_{d}.cu",
+                "replaces": replaces[(mode, d)],
+                "launches": launches[mode][d], "max_abs_err": err[mode][d],
+                "ms": kt[mode][d], "plain_ms": kt[mode][f"{d} plain"]})
+    entries += [
         {"name": "probe", "route": "cuda", "source": f"{src_dir}/probe.cu",
          "replaces": "tools/pallas_probe.py:58",
          "launches": probe_launches["probe"], "max_abs_err": perr["probe"],
@@ -634,7 +808,8 @@ def main() -> int:
          "launches": probe_launches["probe2"],
          "max_abs_err": perr["probe2"],
          "ms": pt["probe2"], "plain_ms": pt["probe2 plain"]},
-    ]}))
+    ]
+    print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

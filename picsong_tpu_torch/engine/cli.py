@@ -1,12 +1,12 @@
 """Command line of the PyTorch/CUDA port, mirroring picsong_tpu.engine.cli.
 
 Same flags, defaults and validation (Launcher.cu:36-163); on decode every
-configuration value comes from the codestream header. Image mode only, for
-the configurations `TorchCodec` covers (cp=2, k=0: gray or planar RGB,
-lossless 5/3 or lossy 9/7, up to 16 bits per sample, signed or unsigned,
-either endianness); anything else prints "not yet ported" and exits with
-status 2. One extra flag, `--device` (default `cuda`), picks the device
-the codec runs on.
+configuration value comes from the codestream header. Image mode, for
+every configuration `TorchCodec` covers (gray or planar RGB, lossless 5/3
+or lossy 9/7, up to 16 bits per sample, signed or unsigned, either
+endianness, -cp 2 or 3, any -k); video and sharded coding print "not yet
+ported" and exit with status 2. One extra flag, `--device` (default
+`cuda`), picks the device the codec runs on.
 
   python -m picsong_tpu_torch.engine.cli -cd 0 -i in.pgm -o out.enc \
       -wl 5 -cp 2 -type 0 -video 0 -LUTFolder trained -k 0
@@ -14,6 +14,8 @@ the codec runs on.
       -video 0 -LUTFolder trained
   python -m picsong_tpu_torch.engine.cli -cd 0 -i in.raw -o out.enc \
       -xSize 2048 -ySize 2560 -isRGB 1 -type 1 -qs 1 -LUTFolder trained
+  python -m picsong_tpu_torch.engine.cli -cd 0 -i in.pgm -o out.enc \
+      -wl 5 -cp 2 -k 5 -LUTFolder trained
   python -m picsong_tpu_torch.engine.cli -cd 1 -i out.enc -o dec.raw \
       -LUTFolder trained
 """
@@ -34,7 +36,7 @@ from picsong_tpu.core.image_io import (append_raw_frame, read_codestream,
                                        write_pgm)
 from picsong_tpu.core.lut import LUTParams, load_luts, neutral_lut
 
-from .pipeline import TorchCodec, unported
+from .pipeline import TorchCodec
 
 HELP = """PICSONG codec, PyTorch/CUDA port. Options (reference-compatible):
   -h                 show this help
@@ -42,7 +44,7 @@ HELP = """PICSONG codec, PyTorch/CUDA port. Options (reference-compatible):
   -i FILE            input file (.pgm or planar RAW for encode)
   -o FILE            output file
   -wl N              wavelet decomposition levels, 1..10 (encode)
-  -cp [2|3]          coding passes (only 2 is ported)
+  -cp [2|3]          coding passes
   -type [0|1]        0 = lossless 5/3, 1 = lossy 9/7
   -qs Q              quantization size in [0, 1] (lossy only)
   -cbWidth N         codeblock width knob (multiple of 64)
@@ -59,7 +61,7 @@ HELP = """PICSONG codec, PyTorch/CUDA port. Options (reference-compatible):
   -sharded N         shard coding over N devices (not ported yet)
   -LUTFolder PATH    LUT folder (or 'neutral' / 'trained': the lossless
                      or, with -type 1, the lossy trained tables)
-  -k K               complexity-scalability factor (only 0 is ported)
+  -k K               complexity-scalability factor (0 = off)
   --device DEV       torch device to run on (default cuda)
 """
 
@@ -179,9 +181,6 @@ def main(argv: list[str] | None = None) -> int:
                           is_lossy=lossy, qs=qs, is_rgb=is_rgb,
                           endianess=endianess, bps=bps, is_signed=is_signed,
                           frames=frames, k_factor=k)
-        why = unported(cfg)
-        if why is not None:
-            return _not_ported(why)
         luts, params = _load_luts(opts.get("LUTFolder", ""), wl, cp, k, lossy)
         pixels = _read_encode_input(input_file, cfg)
         codec = TorchCodec(cfg, luts, params, device)
@@ -190,9 +189,6 @@ def main(argv: list[str] | None = None) -> int:
             write_codestream(output_file, s, first=(j == 0))
     elif cd == 1:
         cfg = unpack_header(read_header_shorts(input_file))
-        why = unported(cfg)
-        if why is not None:
-            return _not_ported(why)
         luts, params = _load_luts(opts.get("LUTFolder", ""),
                                   cfg.wavelet_levels, cfg.coding_passes,
                                   cfg.k_factor, cfg.is_lossy)

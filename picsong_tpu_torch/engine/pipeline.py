@@ -1,16 +1,16 @@
 """Single-device engine on torch: `TorchCodec`.
 
 Counterpart of `picsong_tpu.engine.pipeline.TPUCodec` for every image
-configuration with cp=2 and k=0 (the ones in which TPUCodec runs its
-Pallas kernels): gray or RGB, lossless 5/3 or lossy 9/7, samples of up to
-16 bits, signed or unsigned, either endianness. The device path is DC
+configuration: gray or RGB, lossless 5/3 or lossy 9/7, samples of up to
+16 bits, signed or unsigned, either endianness, two or three coding passes
+(-cp), with or without complexity scalability (-k). The device path is DC
 shift (and RCT or ICT) -> multi-level DWT -> 64x64 codeblock tiling ->
 BPC-PaCo encode per component, and the mirror BPC-PaCo decode -> untile
 -> inverse DWT -> inverse color transform -> clamp; on a CUDA device the
-BPC steps are the hand-written kernels. Packing and unpacking of the
-codestream stay on the host (`picsong_tpu.native.pack_streams` /
-`unpack_streams`), as in TPUCodec: one codestream per component, the
-header on the first.
+BPC steps are the hand-written kernels, in the variant of the coding mode
+(cp=2, cp=3, or bulk for k > 0). Packing and unpacking of the codestream
+stay on the host (`picsong_tpu.native.pack_streams` / `unpack_streams`),
+as in TPUCodec: one codestream per component, the header on the first.
 
 The bitplane count comes from one read of the coefficient maximum over
 all components after the DWT. TPUCodec instead replicated the DWT on the
@@ -20,9 +20,6 @@ is exact, and since the coder starts at each block's own MSB the bytes do
 not depend on the bound. TPUCodec's PlaneOverflowError retry loop has
 nothing left to retry; `check_planes_bound` still guards the downloaded
 streams.
-
-Configurations outside the slice (cp=3, -k > 0) raise NotImplementedError
-naming the ROADMAP item that ports them; nothing falls back to JAX.
 """
 
 from __future__ import annotations
@@ -53,15 +50,6 @@ def meta_to_torch(meta, device) -> tuple[torch.Tensor, ...]:
     """The per-codeblock arrays of `bpc._meta_args` (ref, sig, sign,
     cp_sig, cp_sign bases as int32; k_over_l2 as float32), as tensors."""
     return tuple(torch.tensor(np.asarray(m), device=device) for m in meta)
-
-
-def unported(cfg: CodecConfig) -> str | None:
-    """Why `cfg` is outside the ported slice, or None if it is inside."""
-    if cfg.coding_passes != 2:
-        return "3 coding passes (ROADMAP queue 1 item 8)"
-    if cfg.k_factor > 0:
-        return "complexity scalability -k > 0 (ROADMAP queue 1 item 8)"
-    return None
 
 
 # the reference's float -> int reconstruction, __float2int_rn(x + 0.01f)
@@ -107,10 +95,6 @@ class TorchCodec:
     def __init__(self, cfg: CodecConfig, luts: list[np.ndarray],
                  params: LUTParams, device="cuda",
                  chunk_blocks: int | None = None):
-        why = unported(cfg)
-        if why is not None:
-            raise NotImplementedError(
-                f"not yet ported to picsong_tpu_torch: {why}")
         if chunk_blocks:
             raise NotImplementedError(
                 "chunk_blocks is a TPU schedule and is not ported "
@@ -128,6 +112,10 @@ class TorchCodec:
         self._meta = meta_to_torch(
             bpc._meta_args(levels, subbands, params, cfg.wavelet_levels,
                            cfg.coding_passes, cfg.k_factor), self.device)
+        self._bpc_kw = dict(params=params,
+                            wavelet_levels=cfg.wavelet_levels,
+                            coding_passes=cfg.coding_passes,
+                            has_k=cfg.k_factor > 0)
         self.timers = StageTimers(nvtx=self.device.type == "cuda")
 
     @property
@@ -139,9 +127,9 @@ class TorchCodec:
         return 3 if self.cfg.is_rgb else 1
 
     def _bpc_args(self, component: int = 0):
-        """LUT of the component (the last one repeats) and the block bases."""
-        lut = self.luts[min(component, len(self.luts) - 1)]
-        return (lut, self._meta[0], self._meta[1], self._meta[2])
+        """LUT of the component (the last one repeats) and the six
+        per-block arrays; the mode keywords are `_bpc_kw`."""
+        return (self.luts[min(component, len(self.luts) - 1)], *self._meta)
 
     # -- device programs ---------------------------------------------------
 
@@ -224,7 +212,7 @@ class TorchCodec:
         max_mag = torch.stack([m for _, m in tiled]).amax()
         n_planes = bpc.planes_for_magnitude(int(max_mag))
         coded = [bpc_cuda.encode_blocks(blocks, *self._bpc_args(i),
-                                        params=self.params, n_planes=n_planes)
+                                        **self._bpc_kw, n_planes=n_planes)
                  for i, (blocks, _) in enumerate(tiled)]
         return coded, n_planes
 
@@ -233,7 +221,7 @@ class TorchCodec:
         [(streams, int32 sizes, n_planes)] per component, on the device ->
         the (ah, aw) sample planes, one gray or [R, G, B]."""
         comps = [self._untile_idwt_impl(bpc_cuda.decode_blocks(
-                     streams, sizes, *self._bpc_args(i), params=self.params,
+                     streams, sizes, *self._bpc_args(i), **self._bpc_kw,
                      n_planes=n_planes))
                  for i, (streams, sizes, n_planes) in enumerate(coded)]
         return self._finish_impl(comps)

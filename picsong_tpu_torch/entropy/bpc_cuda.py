@@ -1,15 +1,17 @@
-"""BPC-PaCo cp=2 k=0 entry points: CPU tensors take the plain PyTorch
-coder, CUDA tensors take the hand-written kernels, anything else raises.
+"""BPC-PaCo entry points: CPU tensors take the plain PyTorch coder, CUDA
+tensors take the hand-written kernels, anything else raises.
 
 `encode_blocks` / `decode_blocks` take the arguments and return the
-results of `picsong_tpu.entropy.bpc_pallas.encode_blocks` /
-`decode_blocks`, as torch tensors on the inputs' device. On CUDA they
-launch `csrc/bpc_encode.cu` / `csrc/bpc_decode.cu` on the current stream
-without synchronising; there is no path from a CUDA tensor to the plain
-version.
+results of `picsong_tpu.entropy.bpc_jax.encode_blocks` / `decode_blocks`,
+as torch tensors on the inputs' device, in every mode: cp=2, cp=3, and
+cp=2 with complexity scalability (`has_k`; k is ignored with cp=3, as
+there). On CUDA they launch the mode's variant of `csrc/bpc_encode.cu` /
+`csrc/bpc_decode.cu` on the current stream without synchronising; there
+is no path from a CUDA tensor to the plain version.
 
-`ENCODE_LAUNCHES` / `DECODE_LAUNCHES` count kernel launches (one per call
-on CUDA), so that a run can show its main path went through the kernels.
+`ENCODE_LAUNCHES` / `DECODE_LAUNCHES` count kernel launches by mode
+("cp2", "cp3", "bulk"; one per call on CUDA), so that a run can show which
+variants its main path went through.
 """
 
 from __future__ import annotations
@@ -22,8 +24,24 @@ from picsong_tpu.core.lut import LUTParams
 from .. import kernels
 from . import bpc
 
-ENCODE_LAUNCHES = 0
-DECODE_LAUNCHES = 0
+# the kernels' picsong::Mode values
+MODES = {"cp2": 0, "cp3": 1, "bulk": 2}
+ENCODE_LAUNCHES = dict.fromkeys(MODES, 0)
+DECODE_LAUNCHES = dict.fromkeys(MODES, 0)
+
+
+def reset_launches() -> None:
+    for counts in (ENCODE_LAUNCHES, DECODE_LAUNCHES):
+        counts.update(dict.fromkeys(MODES, 0))
+
+
+def mode_of(coding_passes: int, has_k: bool) -> str:
+    """The kernel variant of a configuration."""
+    if coding_passes not in (2, 3):
+        raise ValueError(f"coding_passes must be 2 or 3, got {coding_passes}")
+    if coding_passes == 3:
+        return "cp3"
+    return "bulk" if has_k else "cp2"
 
 
 def _device_type(*tensors: torch.Tensor) -> str:
@@ -36,9 +54,10 @@ def _device_type(*tensors: torch.Tensor) -> str:
     return dev.type
 
 
-def _check_int32(t: torch.Tensor, name: str, shape: tuple) -> None:
-    if t.dtype != torch.int32:
-        raise TypeError(f"{name} must be int32, got {t.dtype}")
+def _check(t: torch.Tensor, name: str, shape: tuple,
+           dtype: torch.dtype = torch.int32) -> None:
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
     if tuple(t.shape) != shape:
         raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
     if not t.is_contiguous():
@@ -51,33 +70,40 @@ def _check_aligned(t: torch.Tensor, name: str) -> None:
         raise ValueError(f"{name} must be 16-byte aligned")
 
 
-def _check_common(n: int, lut, ref_b, sig_b, sign_b, n_planes: int) -> None:
+def _meta_pointers(n: int, lut, meta, n_planes: int) -> list[int]:
+    """Check the LUT, the six per-block arrays and n_planes; return the
+    arrays' pointers."""
     if lut.numel() == 0:
         raise ValueError("lut must not be empty")
-    _check_int32(lut, "lut", (lut.numel(),))
-    for name, t in (("ref_base", ref_b), ("sig_base", sig_b),
-                    ("sign_base", sign_b)):
-        _check_int32(t, name, (n,))
+    _check(lut, "lut", (lut.numel(),))
+    names = ("ref_base", "sig_base", "sign_base", "cp_sig_base",
+             "cp_sign_base", "k_over_l2")
+    for name, t in zip(names, meta, strict=True):
+        _check(t, name, (n,),
+               torch.float32 if name == "k_over_l2" else torch.int32)
     if not 1 <= n_planes <= 32:
         raise ValueError(f"n_planes must be in 1..32, got {n_planes}")
+    return [t.data_ptr() for t in meta]
 
 
 def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
-def encode_blocks(blocks, lut, ref_b, sig_b, sign_b, *, params: LUTParams,
-                  n_planes: int):
+def encode_blocks(blocks, lut, ref_b, sig_b, sign_b, cp_sig_b, cp_sign_b,
+                  k_over_l2, *, params: LUTParams, wavelet_levels: int,
+                  coding_passes: int, has_k: bool, n_planes: int):
     """(N, 64, 64) int32 codeblocks -> (streams (N, 4096), sizes (N,))."""
-    kind = _device_type(blocks, lut, ref_b, sig_b, sign_b)
-    if kind == "cpu":
-        return bpc.encode_blocks_plain(blocks, lut, ref_b, sig_b, sign_b,
-                                       params=params, n_planes=n_planes)
-    global ENCODE_LAUNCHES
+    meta = (ref_b, sig_b, sign_b, cp_sig_b, cp_sign_b, k_over_l2)
+    kw = dict(params=params, wavelet_levels=wavelet_levels,
+              coding_passes=coding_passes, has_k=has_k, n_planes=n_planes)
+    mode = mode_of(coding_passes, has_k)
+    if _device_type(blocks, lut, *meta) == "cpu":
+        return bpc.encode_blocks_plain(blocks, lut, *meta, **kw)
     n = blocks.shape[0]
-    _check_int32(blocks, "blocks", (n, spec.CBLOCK_LENGTH, spec.CBLOCK_WIDTH))
+    _check(blocks, "blocks", (n, spec.CBLOCK_LENGTH, spec.CBLOCK_WIDTH))
     _check_aligned(blocks, "blocks")
-    _check_common(n, lut, ref_b, sig_b, sign_b, n_planes)
+    ptrs = _meta_pointers(n, lut, meta, n_planes)
     lib = kernels.library()
     streams = torch.empty((n, spec.CBLOCK_SIZE), dtype=torch.int32,
                           device=blocks.device)
@@ -85,29 +111,30 @@ def encode_blocks(blocks, lut, ref_b, sig_b, sign_b, *, params: LUTParams,
     if n == 0:
         return streams, sizes
     rc = lib.picsong_bpc_encode(
-        blocks.data_ptr(), lut.data_ptr(), lut.numel(), ref_b.data_ptr(),
-        sig_b.data_ptr(), sign_b.data_ptr(), n, n_planes,
-        params.mult_precision, streams.data_ptr(), sizes.data_ptr(),
-        _stream())
-    ENCODE_LAUNCHES += 1
-    kernels.check(lib, rc, "bpc_encode launch")
+        blocks.data_ptr(), lut.data_ptr(), lut.numel(), *ptrs, n, n_planes,
+        params.mult_precision, params.stride_per_group(wavelet_levels),
+        MODES[mode], streams.data_ptr(), sizes.data_ptr(), _stream())
+    ENCODE_LAUNCHES[mode] += 1
+    kernels.check(lib, rc, f"bpc_encode {mode} launch")
     return streams, sizes
 
 
-def decode_blocks(streams, sizes, lut, ref_b, sig_b, sign_b, *,
-                  params: LUTParams, n_planes: int):
+def decode_blocks(streams, sizes, lut, ref_b, sig_b, sign_b, cp_sig_b,
+                  cp_sign_b, k_over_l2, *, params: LUTParams,
+                  wavelet_levels: int, coding_passes: int, has_k: bool,
+                  n_planes: int):
     """(N, 4096) int32 streams + (N,) int32 sizes -> (N, 64, 64) int32."""
-    kind = _device_type(streams, sizes, lut, ref_b, sig_b, sign_b)
-    if kind == "cpu":
-        return bpc.decode_blocks_plain(streams, sizes, lut, ref_b, sig_b,
-                                       sign_b, params=params,
-                                       n_planes=n_planes)
-    global DECODE_LAUNCHES
+    meta = (ref_b, sig_b, sign_b, cp_sig_b, cp_sign_b, k_over_l2)
+    kw = dict(params=params, wavelet_levels=wavelet_levels,
+              coding_passes=coding_passes, has_k=has_k, n_planes=n_planes)
+    mode = mode_of(coding_passes, has_k)
+    if _device_type(streams, sizes, lut, *meta) == "cpu":
+        return bpc.decode_blocks_plain(streams, sizes, lut, *meta, **kw)
     n = streams.shape[0]
-    _check_int32(streams, "streams", (n, spec.CBLOCK_SIZE))
-    _check_int32(sizes, "sizes", (n,))
+    _check(streams, "streams", (n, spec.CBLOCK_SIZE))
+    _check(sizes, "sizes", (n,))
     _check_aligned(streams, "streams")
-    _check_common(n, lut, ref_b, sig_b, sign_b, n_planes)
+    ptrs = _meta_pointers(n, lut, meta, n_planes)
     lib = kernels.library()
     out = torch.empty((n, spec.CBLOCK_LENGTH, spec.CBLOCK_WIDTH),
                       dtype=torch.int32, device=streams.device)
@@ -115,8 +142,9 @@ def decode_blocks(streams, sizes, lut, ref_b, sig_b, sign_b, *,
         return out
     rc = lib.picsong_bpc_decode(
         streams.data_ptr(), sizes.data_ptr(), lut.data_ptr(), lut.numel(),
-        ref_b.data_ptr(), sig_b.data_ptr(), sign_b.data_ptr(), n, n_planes,
-        params.mult_precision, out.data_ptr(), _stream())
-    DECODE_LAUNCHES += 1
-    kernels.check(lib, rc, "bpc_decode launch")
+        *ptrs, n, n_planes, params.mult_precision,
+        params.stride_per_group(wavelet_levels), MODES[mode], out.data_ptr(),
+        _stream())
+    DECODE_LAUNCHES[mode] += 1
+    kernels.check(lib, rc, f"bpc_decode {mode} launch")
     return out

@@ -32,12 +32,14 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # name -> argument types; every C entry point returns a cudaError_t as int
 _SIGNATURES = {
-    # blocks, lut, lut_len, ref_b, sig_b, sign_b, n, n_planes, prec,
-    # streams, sizes, stream
-    "picsong_bpc_encode": [_P, _P, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P],
-    # streams, sizes, lut, lut_len, ref_b, sig_b, sign_b, n, n_planes, prec,
-    # coeffs, stream
-    "picsong_bpc_decode": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _P, _P],
+    # blocks, lut, lut_len, ref_b, sig_b, sign_b, cp_sig_b, cp_sign_b,
+    # k_over_l2, n, n_planes, prec, stride, mode, streams, sizes, stream
+    "picsong_bpc_encode": [_P, _P, _I, *[_P] * 6, _I, _I, _I, _I, _I,
+                           _P, _P, _P],
+    # streams, sizes, lut, lut_len, ref_b, sig_b, sign_b, cp_sig_b,
+    # cp_sign_b, k_over_l2, n, n_planes, prec, stride, mode, coeffs, stream
+    "picsong_bpc_decode": [_P, _P, _P, _I, *[_P] * 6, _I, _I, _I, _I, _I,
+                           _P, _P],
     # tape, base, out, stream
     "picsong_probe": [_P, _P, _P, _P],
     # tape, amt, out, stream

@@ -36,9 +36,15 @@ def _case(seed, maxmag, n=24):
     return blocks, levels, subbands, lut
 
 
+KW = dict(params=PARAMS, wavelet_levels=WL, coding_passes=2, has_k=False)
+
+
 def _torch_args(lut, meta):
+    """The LUT and the six per-block arrays of a cp=2 k=0 batch."""
+    zeros = torch.zeros(len(meta["ref"]), dtype=torch.int32)
     return (torch.from_numpy(lut), torch.from_numpy(meta["ref"]),
-            torch.from_numpy(meta["sig"]), torch.from_numpy(meta["sign"]))
+            torch.from_numpy(meta["sig"]), torch.from_numpy(meta["sign"]),
+            zeros, zeros, torch.from_numpy(meta["k_over_l2"]))
 
 
 @pytest.mark.parametrize("seed,maxmag", [(0, 200), (1, 7), (2, 30000)])
@@ -47,8 +53,8 @@ def test_plain_encode_matches_pallas_and_xla(seed, maxmag):
     meta = bpc.block_metadata(levels, subbands, PARAMS, WL, 2, 0.0)
     n_planes = bpc.planes_for_magnitude(int(np.max(np.abs(blocks))))
     streams, sizes = bpc.encode_blocks_plain(
-        torch.from_numpy(blocks), *_torch_args(lut, meta),
-        params=PARAMS, n_planes=n_planes)
+        torch.from_numpy(blocks), *_torch_args(lut, meta), **KW,
+        n_planes=n_planes)
     assert streams.dtype == torch.int32 and sizes.dtype == torch.int32
 
     want_s, want_n = bpc_pallas.encode_blocks(
@@ -73,7 +79,7 @@ def test_plain_decode_matches_pallas_and_inverts(seed, maxmag):
     out = bpc.decode_blocks_plain(
         torch.from_numpy(np.array(streams)),
         torch.from_numpy(sizes.astype(np.int32)),
-        *_torch_args(lut, meta), params=PARAMS, n_planes=n_planes)
+        *_torch_args(lut, meta), **KW, n_planes=n_planes)
     assert out.dtype == torch.int32
     assert np.array_equal(out.numpy(), blocks)
     if maxmag < 30000:   # the interpret-mode decoder is the slow half
@@ -96,7 +102,7 @@ def test_plain_encode_matches_oracle_per_block():
         np.int32)
     meta = bpc.block_metadata(levels, subbands, PARAMS, WL, 2, 0.0)
     streams, sizes = bpc_cuda.encode_blocks(
-        torch.from_numpy(blocks), *_torch_args(lut, meta), params=PARAMS,
+        torch.from_numpy(blocks), *_torch_args(lut, meta), **KW,
         n_planes=bpc.planes_for_magnitude(int(np.max(np.abs(blocks)))))
     for i in range(n):
         want_s, want_n = obpc.encode_codeblock(

@@ -1,8 +1,9 @@
 """TorchCodec and the port's CLI against TPUCodec and the NumPy oracle.
 
 The codestreams are compared byte for byte and the decoded planes bit for
-bit (tolerance 0): the slice is lossless. The port runs on the CPU here,
-where the BPC coder is its plain PyTorch version.
+bit (tolerance 0); a lossy decode is compared with the oracle's decode,
+also bit for bit. The port runs on the CPU here, where the BPC coder is
+its plain PyTorch version.
 """
 
 import os
@@ -11,7 +12,9 @@ import numpy as np
 import pytest
 
 from picsong_tpu.core.header import CodecConfig
-from picsong_tpu.core.image_io import read_pgm, write_pgm
+from picsong_tpu.core.image_io import (append_raw_frame, read_pgm,
+                                       read_raw_frame, sample_dtype,
+                                       write_pgm)
 from picsong_tpu.core.lut import LUTParams, load_luts, neutral_lut
 from picsong_tpu.engine.pipeline import TPUCodec
 from picsong_tpu.reference import codec as oracle
@@ -80,9 +83,25 @@ def test_torch_codec_signed_samples_round_trip():
     (dict(k_factor=4.0), "item 8"),
 ])
 def test_torch_codec_rejects_unported_configs(cfg_kw, item):
+    """The configurations refused until ROADMAP queue 1 `item` was ported
+    (cp=3 and -k): each now codes to the oracle's bytes and decodes to the
+    oracle's samples, which for lossless are the input's."""
     cfg = CodecConfig(width=64, height=64, wavelet_levels=1, **cfg_kw)
-    with pytest.raises(NotImplementedError, match=item):
-        TorchCodec(cfg, *_neutral(1), device="cpu")
+    luts, params = cli._load_luts("neutral", 1, cfg.coding_passes,
+                                  cfg.k_factor)
+    img = make_image(np.random.default_rng(len(cfg_kw)), 64, 64)
+    if cfg.bps > 8:
+        img = img.astype(np.uint16) * 16
+    pixels = [np.roll(img, 7 * c, axis=1) for c in range(3)] if cfg.is_rgb \
+        else img
+    codec = TorchCodec(cfg, luts, params, device="cpu")
+    got = codec.encode(pixels)
+    want = oracle.encode_image(pixels, cfg, luts, params)
+    assert all(np.array_equal(g, w) for g, w in zip(got, want, strict=True))
+    out = codec.decode(got)
+    expect = (oracle.decode_image(want, cfg, luts, params) if cfg.is_lossy
+              else pixels)
+    assert np.array_equal(np.asarray(out), np.asarray(expect)), item
 
 
 def test_torch_codec_rejects_chunking():
@@ -116,16 +135,50 @@ def test_cli_round_trip(tmp_path, lut_folder):
     ["-bps", "12", "-cp", "3"],
 ])
 def test_cli_unported_flags_exit_2(tmp_path, capsys, flags):
-    src = str(tmp_path / "in.pgm")
-    write_pgm(src, np.zeros((64, 64), np.uint8))
-    rc = cli.main(["-cd", "0", "-i", src, "-o", str(tmp_path / "o.enc"),
-                   "-wl", "1", "--device", "cpu", *flags])
-    assert rc == 2
-    assert "not yet ported" in capsys.readouterr().out
-    assert not os.path.exists(tmp_path / "o.enc")
+    """Video and sharded coding exit 2; the cp=3 and -k flags, refused
+    until they were ported, now round-trip a planar RAW frame (bit-exact
+    for lossless; a gray codestream is the oracle's, byte for byte)."""
+    opts = dict(zip(flags[::2], flags[1::2]))
+    rgb, bps = opts.get("-isRGB") == "1", int(opts.get("-bps", 8))
+    img = make_image(np.random.default_rng(3), 64, 64).astype(np.uint16)
+    planes = [np.roll(img, 7 * c, axis=1) << (bps - 8)
+              for c in range(3 if rgb else 1)]
+    dtype = sample_dtype(bps)
+    src, enc, dec = (str(tmp_path / n) for n in ("in.raw", "o.enc", "d.raw"))
+    for plane in planes:
+        append_raw_frame(src, plane, dtype)
+    rc = cli.main(["-cd", "0", "-i", src, "-o", enc, "-xSize", "64",
+                   "-ySize", "64", "-wl", "1", "--device", "cpu", *flags])
+    if flags[0] in ("-video", "-sharded"):
+        assert rc == 2
+        assert "not yet ported" in capsys.readouterr().out
+        assert not os.path.exists(enc)
+        return
+    assert rc == 0
+    assert cli.main(["-cd", "1", "-i", enc, "-o", dec, "--device",
+                     "cpu"]) == 0
+    back = [read_raw_frame(dec, 64, 64, c, dtype) for c in range(len(planes))]
+    lossy = opts.get("-type") == "1"
+    cp, k = int(opts.get("-cp", 2)), float(opts.get("-k", 0))
+    cfg = CodecConfig(width=64, height=64, wavelet_levels=1, coding_passes=cp,
+                      k_factor=k, is_lossy=lossy, bps=bps, bit_depth=bps,
+                      is_rgb=rgb, components=3 if rgb else 1)
+    luts, params = cli._load_luts("", 1, cp, k, lossy)
+    if lossy:
+        want = oracle.encode_image(planes[0], cfg, luts, params)
+        assert open(enc, "rb").read() == want[0].tobytes()
+        assert np.array_equal(back[0], oracle.decode_image(want, cfg, luts,
+                                                           params))
+    else:
+        assert all(np.array_equal(b, p) for b, p in zip(back, planes))
+        if not rgb:
+            want = oracle.encode_image(planes[0], cfg, luts, params)[0]
+            assert open(enc, "rb").read() == want.tobytes()
 
 
-def test_cli_decode_of_unported_stream_exits_2(tmp_path, capsys):
+def test_cli_decode_of_unported_stream_exits_2(tmp_path):
+    """An oracle cp=3 codestream, refused until cp=3 was ported, now
+    decodes through the CLI to the image, bit for bit."""
     img = make_image(np.random.default_rng(1), 64, 64)
     cfg = CodecConfig(width=64, height=64, wavelet_levels=1, coding_passes=3)
     enc = tmp_path / "cp3.enc"
@@ -133,8 +186,8 @@ def test_cli_decode_of_unported_stream_exits_2(tmp_path, capsys):
         img, cfg, [neutral_lut(PARAMS, 1, 3)], PARAMS)[0].tobytes())
     rc = cli.main(["-cd", "1", "-i", str(enc), "-o", str(tmp_path / "d.pgm"),
                    "--device", "cpu"])
-    assert rc == 2
-    assert "not yet ported" in capsys.readouterr().out
+    assert rc == 0
+    assert np.array_equal(read_pgm(str(tmp_path / "d.pgm")), img)
 
 
 def test_cli_validation_matches_reference_predicate(tmp_path, capsys):

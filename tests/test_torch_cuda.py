@@ -34,42 +34,71 @@ def cuda():
     return torch.device("cuda")
 
 
-def _batch(seed, maxmag, n=64):
+def _batch(seed, maxmag, n=64, cp=2, k=0.0):
+    """Random blocks with an empty block (3), a raw-fallback block (5) and
+    a block with MSB 0 (6); with k > 0 also a sparse block with MSB 15 (7),
+    whose split plane reaches past the 15 group tables. Returns the blocks,
+    the LUT and six per-block arrays, the mode keywords and n_planes."""
     rng = np.random.default_rng(seed)
     blocks = rng.integers(-maxmag, maxmag + 1, size=(n, 64, 64),
                           dtype=np.int32)
     blocks[rng.random(blocks.shape) < 0.7] = 0
     blocks[3] = 0
     blocks[5] = rng.integers(-30000, 30001, size=(64, 64), dtype=np.int32)
+    blocks[6] = rng.integers(-1, 2, size=(64, 64), dtype=np.int32)
+    if k > 0:
+        blocks[7] = np.where(rng.random((64, 64)) < 0.02, 32768, 0)
+        blocks[7, 0, 0] = -65535
     levels = (np.arange(n) % (WL + 1)).astype(np.int32)
     subbands = np.where(levels == WL, 0, np.arange(n) % 3).astype(np.int32)
-    lut = neutral_lut(PARAMS, WL, 2)
-    lut = lut + (np.arange(lut.size, dtype=np.int32) % 41)
-    meta = bpc.block_metadata(levels, subbands, PARAMS, WL, 2, 0.0)
-    args = [torch.from_numpy(a) for a in (lut, meta["ref"], meta["sig"],
-                                          meta["sign"])]
+    groups = PARAMS.n_bitplane_files if k > 0 else 1
+    lut = neutral_lut(PARAMS, WL, cp, groups)
+    lut = lut + (np.arange(lut.size, dtype=np.int32) * 7 % 41)
+    meta = bpc._meta_args(levels, subbands, PARAMS, WL, cp, k)
+    args = [torch.from_numpy(np.asarray(a)) for a in (lut, *meta)]
+    kw = dict(params=PARAMS, wavelet_levels=WL, coding_passes=cp,
+              has_k=k > 0)
     n_planes = bpc.planes_for_magnitude(int(np.abs(blocks).max()))
-    return torch.from_numpy(blocks), args, n_planes
+    return torch.from_numpy(blocks), args, kw, n_planes
+
+
+def _check_kernels(cuda, blocks, args, kw, n_planes):
+    """Both kernels of the mode of `kw` against the plain versions, with
+    one launch each; returns the sizes."""
+    mode = bpc_cuda.mode_of(kw["coding_passes"], kw["has_k"])
+    want_s, want_n = bpc.encode_blocks_plain(blocks, *args, **kw,
+                                             n_planes=n_planes)
+    dargs = [a.to(cuda) for a in args]
+    before = (bpc_cuda.ENCODE_LAUNCHES[mode], bpc_cuda.DECODE_LAUNCHES[mode])
+    got_s, got_n = bpc_cuda.encode_blocks(blocks.to(cuda), *dargs, **kw,
+                                          n_planes=n_planes)
+    out = bpc_cuda.decode_blocks(got_s, got_n, *dargs, **kw,
+                                 n_planes=n_planes)
+    torch.cuda.synchronize()
+    assert (bpc_cuda.ENCODE_LAUNCHES[mode], bpc_cuda.DECODE_LAUNCHES[mode]) \
+        == (before[0] + 1, before[1] + 1)
+    assert torch.equal(got_n.cpu(), want_n)
+    assert torch.equal(got_s.cpu(), want_s)
+    assert torch.equal(out.cpu(), bpc.decode_blocks_plain(
+        want_s, want_n, *args, **kw, n_planes=n_planes))
+    raw = got_n.cpu() == 4096
+    assert torch.equal(out.cpu()[~raw], blocks[~raw])
+    return got_n.cpu()
 
 
 @pytest.mark.parametrize("seed,maxmag", [(0, 200), (1, 7), (2, 30000)])
 def test_kernels_match_plain(cuda, seed, maxmag):
-    blocks, args, n_planes = _batch(seed, maxmag)
-    want_s, want_n = bpc.encode_blocks_plain(blocks, *args, params=PARAMS,
-                                             n_planes=n_planes)
-    dargs = [a.to(cuda) for a in args]
-    before = (bpc_cuda.ENCODE_LAUNCHES, bpc_cuda.DECODE_LAUNCHES)
-    got_s, got_n = bpc_cuda.encode_blocks(blocks.to(cuda), *dargs,
-                                          params=PARAMS, n_planes=n_planes)
-    out = bpc_cuda.decode_blocks(got_s, got_n, *dargs, params=PARAMS,
-                                 n_planes=n_planes)
-    torch.cuda.synchronize()
-    assert (bpc_cuda.ENCODE_LAUNCHES, bpc_cuda.DECODE_LAUNCHES) == (
-        before[0] + 1, before[1] + 1)
-    assert torch.equal(got_n.cpu(), want_n)
-    assert torch.equal(got_s.cpu(), want_s)
-    assert int(got_n[5]) == 4096 and int(got_n[3]) == 1
-    assert torch.equal(out.cpu(), blocks)
+    sizes = _check_kernels(cuda, *_batch(seed, maxmag))
+    assert int(sizes[5]) == 4096 and int(sizes[3]) == 1
+
+
+@pytest.mark.parametrize("cp,k,maxmag", [(3, 0.0, 200), (3, 0.0, 30000),
+                                         (2, 1.0, 200), (2, 5.0, 900),
+                                         (2, 8.0, 30000)])
+def test_cp3_and_bulk_kernels_match_plain(cuda, cp, k, maxmag):
+    blocks, args, kw, n_planes = _batch(4, maxmag, cp=cp, k=k)
+    sizes = _check_kernels(cuda, blocks, args, kw, n_planes)
+    assert int(sizes[5]) == 4096 and int(sizes[3]) == 1
 
 
 def test_torch_codec_on_cuda_matches_oracle(cuda):
@@ -87,22 +116,27 @@ def test_torch_codec_on_cuda_matches_oracle(cuda):
 
 
 def test_kernel_wrappers_reject_bad_inputs(cuda):
-    blocks, args, n_planes = _batch(0, 7, n=8)
+    blocks, args, kw, n_planes = _batch(0, 7, n=8, k=2.0)
     dargs = [a.to(cuda) for a in args]
     b = blocks.to(cuda)
     with pytest.raises(TypeError, match="int32"):
-        bpc_cuda.encode_blocks(b.long(), *dargs, params=PARAMS,
-                               n_planes=n_planes)
+        bpc_cuda.encode_blocks(b.long(), *dargs, **kw, n_planes=n_planes)
     with pytest.raises(ValueError, match="contiguous"):
-        bpc_cuda.encode_blocks(b.transpose(1, 2), *dargs, params=PARAMS,
+        bpc_cuda.encode_blocks(b.transpose(1, 2), *dargs, **kw,
                                n_planes=n_planes)
     with pytest.raises(ValueError, match="n_planes"):
-        bpc_cuda.encode_blocks(b, *dargs, params=PARAMS, n_planes=33)
+        bpc_cuda.encode_blocks(b, *dargs, **kw, n_planes=33)
+    with pytest.raises(TypeError, match="k_over_l2"):
+        bpc_cuda.encode_blocks(b, *dargs[:-1], dargs[-1].double(), **kw,
+                               n_planes=n_planes)
+    with pytest.raises(ValueError, match="coding_passes"):
+        bpc_cuda.encode_blocks(b, *dargs, **dict(kw, coding_passes=4),
+                               n_planes=n_planes)
     flat = torch.zeros(8 * 4096 + 1, dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="aligned"):
         bpc_cuda.decode_blocks(flat[1:].view(8, 4096),
                                torch.ones(8, dtype=torch.int32, device=cuda),
-                               *dargs, params=PARAMS, n_planes=n_planes)
+                               *dargs, **kw, n_planes=n_planes)
 
 
 @pytest.mark.parametrize("case", ["probe_inputs", "edges"])

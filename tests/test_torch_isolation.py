@@ -105,40 +105,40 @@ def test_find_nvcc_raises_when_absent(monkeypatch, tmp_path):
 
 
 def _meta_inputs(device):
+    """Params, a LUT and the six per-block arrays (all zero) of two blocks,
+    plus the mode keywords of cp=2 k=0."""
     params = LUTParams()
     lut = torch.tensor(neutral_lut(params, 1, 2), device=device)
     z = torch.zeros(2, dtype=torch.int32, device=device)
-    return params, lut, z
+    meta = (z, z, z, z, z, torch.zeros(2, device=device))
+    kw = dict(params=params, wavelet_levels=1, coding_passes=2, has_k=False,
+              n_planes=4)
+    return lut, meta, kw
 
 
 def test_bpc_dispatch_refuses_other_devices():
-    params, lut, z = _meta_inputs("meta")
+    lut, meta, kw = _meta_inputs("meta")
     blocks = torch.zeros((2, 64, 64), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="no BPC-PaCo implementation"):
-        bpc_cuda.encode_blocks(blocks, lut, z, z, z, params=params,
-                               n_planes=4)
+        bpc_cuda.encode_blocks(blocks, lut, *meta, **kw)
     streams = torch.zeros((2, 4096), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="no BPC-PaCo implementation"):
-        bpc_cuda.decode_blocks(streams, z, lut, z, z, z, params=params,
-                               n_planes=4)
+        bpc_cuda.decode_blocks(streams, meta[0], lut, *meta, **kw)
 
 
 def test_bpc_dispatch_refuses_mixed_devices():
-    params, lut, z = _meta_inputs("cpu")
+    lut, meta, kw = _meta_inputs("cpu")
     blocks = torch.zeros((2, 64, 64), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="several devices"):
-        bpc_cuda.encode_blocks(blocks, lut, z, z, z, params=params,
-                               n_planes=4)
+        bpc_cuda.encode_blocks(blocks, lut, *meta, **kw)
 
 
 def test_bpc_dispatch_cpu_takes_plain_version_without_counting():
-    params, lut, z = _meta_inputs("cpu")
-    before = (bpc_cuda.ENCODE_LAUNCHES, bpc_cuda.DECODE_LAUNCHES)
+    lut, meta, kw = _meta_inputs("cpu")
+    before = (dict(bpc_cuda.ENCODE_LAUNCHES), dict(bpc_cuda.DECODE_LAUNCHES))
     blocks = torch.zeros((2, 64, 64), dtype=torch.int32)
     blocks[1, 3, 5] = -9
-    streams, sizes = bpc_cuda.encode_blocks(blocks, lut, z, z, z,
-                                            params=params, n_planes=4)
-    out = bpc_cuda.decode_blocks(streams, sizes, lut, z, z, z, params=params,
-                                 n_planes=4)
+    streams, sizes = bpc_cuda.encode_blocks(blocks, lut, *meta, **kw)
+    out = bpc_cuda.decode_blocks(streams, sizes, lut, *meta, **kw)
     assert torch.equal(out, blocks)
     assert (bpc_cuda.ENCODE_LAUNCHES, bpc_cuda.DECODE_LAUNCHES) == before
