@@ -5,16 +5,20 @@
 
 Builds the port's kernels from picsong_tpu_torch/csrc with nvcc (one
 compiler per source, in parallel), holds each kernel equal to its plain
-PyTorch version on the card, holds the port's codestreams byte-equal to
-the NumPy oracle, and drives each of the port's paths through the CLI,
-reading the kernels' launch counts (by coding mode) around each path:
+PyTorch version on the card, holds the port's codestreams and picked
+codeblocks to the NumPy oracle's SHA-256 digests recorded in
+picsong_tpu_torch/tools/goldens.py (tests/test_torch_goldens.py
+regenerates them from the oracle; the inputs' digests are checked first),
+and drives each of the port's paths through the CLI, reading the
+kernels' launch counts (by coding mode) around each path. Nothing of JAX
+or of the JAX package `picsong_tpu` is imported:
 - gray lossless 5/3, 2048x2048 at 5 wavelet levels, neutral and trained
   LUTs (the main path; then every layer of it is timed);
 - the two probe kernels against their plain versions on the probes' own
   and on edge inputs, then the probe entry points;
 - gray lossy 9/7, 2048x2048 at 3 levels, qs 1 (BASELINE config 2),
   neutral and trained lossy LUTs, plus a 512x512 byte check against the
-  oracle;
+  oracle's codestream and decoded samples;
 - planar RGB 2048x2560 (the reference's image workload), lossless RCT and
   lossy ICT;
 - 16-bit gray lossless, 2048x2048;
@@ -23,6 +27,9 @@ reading the kernels' launch counts (by coding mode) around each path:
   trained LUTs, and gray lossy 2048x2048 wl=3 -k 5 with the trained lossy
   LUT, after random batches and a 512x512 wl=1 byte check against the
   oracle in both modes;
+- 8192x8192 wl=5 (16384 codeblocks, a size that fills the card) in all
+  three modes: an encode -> decode round trip of the kernels equal to
+  the input blocks, 64 picked blocks equal to the plain coder, times;
 on each path after the main one it also holds the BPC kernels equal to
 their plain versions on every component's codeblocks, at the path's
 n_planes and with the component's LUT; on the lossy ones it holds the
@@ -31,13 +38,16 @@ CPU TorchCodec's, and the CLI's decoded file equal to those samples. Then
 it times the device halves and CLI round trips of the paths (the two
 cli.main calls alone) and each kernel variant against its plain version.
 Every comparison is exact except the lossy PSNR floors, which are stated
-where they are checked.
+where they are checked. The main path's layers include the device pack
+and unpack of the codestream (assembly/pack.py): only the packed bytes
+cross PCIe.
 
 Exits non-zero, printing no result, when there is no CUDA device or any
-check fails. Otherwise its last two lines are a JSON object with each
-kernel's launches, error and times, then
-{"ok": true, "device": {"platform": "gpu", ...}}; the line before those
-holds the card's name and power limit as nvidia-smi reports them.
+check fails. Otherwise its last three lines are a JSON object with each
+kernel's launches, error, times and bound (the larger of its bytes over
+3.35 TB/s and its int32 operations over 16.7 Tops/s: bpc_cuda.bound_ms,
+probe.bound_ms, probe2.bound_ms), the card's name and power limit, then
+{"ok": true, "device": {"platform": "gpu", ...}}.
 """
 
 from __future__ import annotations
@@ -60,6 +70,8 @@ LOSSY_LEVELS = 3              # BASELINE config 2
 RGB_W, RGB_H = 2048, 2560     # the reference's image workload
 PROBE_CALLS = 200
 K = 5.0                       # the JAX bench's cs_k5_2048
+BIG = 8192                    # 16384 codeblocks at wl=5: fills the card
+BIG_PICKS = 64                # blocks of the 8192^2 plane held to plain
 
 
 def _require(ok: bool, what: str) -> None:
@@ -71,20 +83,6 @@ def _run(cmd: list[str]) -> str:
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=60)
     _require(proc.returncode == 0, f"{' '.join(cmd)} exited {proc.returncode}")
     return proc.stdout.strip()
-
-
-def make_image(size: int, seed: int = 3, width: int | None = None,
-               peak: int = 255):
-    """Smooth pattern plus Gaussian noise (the verify recipe's), 8-bit, or
-    scaled to `peak` as uint16."""
-    import numpy as np
-    width = width or size
-    rng = np.random.default_rng(seed)
-    y, x = np.mgrid[0:size, 0:width]
-    img = (120 + 70 * np.sin(x / 11.0) * np.cos(y / 17.0)
-           + rng.normal(0, 6, (size, width))) * (peak / 255)
-    return np.clip(img, 0, peak).astype(np.uint8 if peak == 255
-                                        else np.uint16)
 
 
 def psnr(a, b, peak: float = 255.0) -> float:
@@ -99,23 +97,26 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
-    sys.modules["jax"] = None        # the port must run without JAX
+    # the port runs without JAX and without the JAX package
+    sys.modules["jax"] = None
+    sys.modules["picsong_tpu"] = None
 
     import numpy as np
 
-    from picsong_tpu.core.geometry import codeblock_bands
-    from picsong_tpu.core.header import CodecConfig
-    from picsong_tpu.core.image_io import (append_raw_frame, read_pgm,
-                                           read_raw_frame, sample_dtype,
-                                           write_pgm)
-    from picsong_tpu.core.lut import LUTParams, neutral_lut
-    from picsong_tpu.reference import bpc as oracle_bpc
-    from picsong_tpu.reference import codec as oracle_codec
     from picsong_tpu_torch import kernels
+    from picsong_tpu_torch.assembly import pack
+    from picsong_tpu_torch.core.geometry import codeblock_bands
+    from picsong_tpu_torch.core.header import CodecConfig, pack_header
+    from picsong_tpu_torch.core.image_io import (append_raw_frame, read_pgm,
+                                                 read_raw_frame, sample_dtype,
+                                                 write_pgm)
+    from picsong_tpu_torch.core.lut import LUTParams, neutral_lut
     from picsong_tpu_torch.engine import cli
     from picsong_tpu_torch.engine.pipeline import TorchCodec
     from picsong_tpu_torch.entropy import bpc, bpc_cuda
-    from picsong_tpu_torch.tools import probe, probe2
+    from picsong_tpu_torch.tools import goldens, probe, probe2
+
+    make_image = goldens.make_image
 
     dev = torch.device("cuda")
     modes = list(bpc_cuda.MODES)
@@ -143,6 +144,14 @@ def main() -> int:
                   else entry.group(1))
         elif "Used" in line or "spill" in line:
             print("  ptxas:", line.strip())
+
+    # the inputs of every digest gate, before any codestream is compared
+    for key, want in goldens.IMAGES.items():
+        _require(goldens.digest(make_image(*key)) == want,
+                 f"input differs: make_image{key} is not the image the "
+                 "golden digests were made from")
+    print(f"{tag} inputs: {len(goldens.IMAGES)} images equal to the golden "
+          "digests' inputs")
 
     # max abs error of each kernel variant against its plain version
     err = {m: {"encode": 0, "decode": 0} for m in modes}
@@ -260,16 +269,14 @@ def main() -> int:
         luts1, params1 = cli._load_luts("neutral", 1, cp, k)
         codec1 = TorchCodec(cfg1, luts1, params1, dev)
         got = codec1.encode(img512)[0]
-        t0 = time.perf_counter()
-        want = oracle_codec.encode_image(img512, cfg1, luts1, params1)[0]
-        oracle_s = time.perf_counter() - t0
-        _require(np.array_equal(got, want),
-                 f"512^2 wl=1 cp={cp} k={k} codestream == oracle")
+        _require(goldens.digest(got) == goldens.CODESTREAMS_512[(cp, k)],
+                 f"512^2 wl=1 cp={cp} k={k} codestream == the oracle's "
+                 "(digest)")
         _require(np.array_equal(codec1.decode([got]), img512),
                  f"512^2 wl=1 cp={cp} k={k} decode bit-exact")
         print(f"{tag} 512^2 wl=1 -cp {cp} -k {k:g}: codestream byte-equal to "
-              f"the NumPy oracle ({got.size} shorts; oracle took "
-              f"{oracle_s:.1f} s on the host), decode bit-exact")
+              f"the NumPy oracle's ({got.size} shorts, SHA-256), decode "
+              "bit-exact")
 
     # ---- 5. the slice at 2048^2 wl=5 through the CLI ----------------------
     img = make_image(SIZE)
@@ -327,24 +334,26 @@ def main() -> int:
           f"{enc_bytes['neutral']} B, trained {enc_bytes['trained']} B; "
           f"kernel launches on the main path {launches['cp2']}")
 
-    def oracle_picks(label, c, blocks, streams, sizes, lut, cp=2, k=0.0):
-        """The first codeblock of every level and subband of a gray plane
-        (LL included) byte-equal to the oracle's encode_codeblock."""
+    def oracle_picks(label, c, blocks, streams, sizes, key):
+        """The first codeblock of every level and subband of the 2048^2
+        wl=5 gray plane (LL included): its coefficients equal to the
+        oracle's DWT, its stream and size to the oracle's encode_codeblock
+        under `key` = (coding passes, k, LUT folder), by digest."""
         lv, sb = codeblock_bands(c.aw, c.ah, c.cfg.wavelet_levels)
-        picks = sorted({(int(a), int(s_)): i
-                        for i, (a, s_) in reversed(list(enumerate(zip(lv, sb))))
-                        }.items())
-        _require(len(picks) == 3 * c.cfg.wavelet_levels + 1,
-                 "every level and subband picked")
+        picks = {}
+        for i, band in enumerate(zip(lv.tolist(), sb.tolist())):
+            picks.setdefault(band, i)
+        _require(sorted(picks.values()) == sorted(goldens.PICKS_2048[key]),
+                 f"{label}: every level and subband picked")
         blocks_np, streams_np = blocks.cpu().numpy(), streams.cpu().numpy()
-        for (level, subband), i in picks:
-            want_s, want_n = oracle_bpc.encode_codeblock(
-                blocks_np[i], level, subband, lut, c.params,
-                c.cfg.wavelet_levels, coding_passes=cp, k_factor=k)
-            _require(int(sizes[i]) == want_n
-                     and np.array_equal(streams_np[i], want_s),
-                     f"{label}: codeblock {i} (level {level}, subband "
-                     f"{subband}) == oracle")
+        sizes_np = sizes.cpu().numpy()
+        for (level, subband), i in sorted(picks.items()):
+            where = f"{label}: codeblock {i} (level {level}, subband {subband})"
+            _require(goldens.digest(blocks_np[i]) == goldens.BLOCKS_2048[i],
+                     f"{where}: input differs from the oracle's DWT")
+            _require(goldens.digest(streams_np[i].astype(np.int32),
+                                    np.int32(sizes_np[i]))
+                     == goldens.PICKS_2048[key][i], f"{where} == oracle")
         return len(picks)
 
     cfg = CodecConfig(width=SIZE, height=SIZE, wavelet_levels=LEVELS)
@@ -359,7 +368,7 @@ def main() -> int:
     compare_decode(streams, sizes, pargs, pkw, n_planes, blocks,
                    f"{SIZE}^2 plane")
     n_picks = oracle_picks(f"{SIZE}^2 plane", codec, blocks, streams, sizes,
-                           luts[0])
+                           (2, 0.0, "neutral"))
     print(f"{tag} {SIZE}^2 plane: {blocks.shape[0]} codeblocks, n_planes "
           f"{n_planes}, kernels byte-equal to plain; {n_picks} codeblocks "
           "(LL and every level/subband) byte-equal to the oracle")
@@ -445,31 +454,38 @@ def main() -> int:
     enc_kernel, dec_kernel = kernel_times("cp2", codec, blocks, streams,
                                           sizes, n_planes)
 
-    # per-layer breakdown of the host API round trip
-    from picsong_tpu import native
-    from picsong_tpu.core.header import pack_header
+    # per-layer breakdown of the host API round trip; the codestream is
+    # packed and unpacked on the card, so only its packed bytes cross PCIe
     header = pack_header(cfg)
-    s_np, z_np = streams.cpu().numpy(), sizes.cpu().numpy()
-    packed = native.pack_streams(s_np, z_np, header)
+    packed = pack.pack_streams(streams, sizes, header)
+    shorts = packed.cpu().numpy().view(np.uint16)
+    _require(np.array_equal(shorts, codec.encode(img)[0])
+             and shorts.size == pack.stream_length(
+                 codec.ncb, int(sizes.sum()) - codec.ncb),
+             "TorchCodec.encode downloads the packed codestream alone")
+    payload = int(pack.block_fields(shorts, codec.ncb)[1].sum()) - codec.ncb
+    s_back, z_back = pack.unpack_streams(packed, codec.ncb, payload)
+    _require(torch.equal(s_back, streams) and torch.equal(z_back, sizes),
+             "device unpack == the kernel's streams and sizes")
     layers = {
         "prep+DWT+tile": device_ms(
             lambda: codec._dwt_tile_impl(codec._prep_gray_impl(samples))),
         "BPC encode kernel": enc_kernel,
-        "D2H streams+sizes": host_ms(
-            lambda: (streams.cpu(), sizes.cpu())),
-        "host pack": host_ms(lambda: native.pack_streams(s_np, z_np, header)),
-        "host unpack": host_ms(lambda: native.unpack_streams(packed,
-                                                             codec.ncb)),
-        "H2D streams+sizes": host_ms(
-            lambda: (gpu(s_np), gpu(z_np.astype(np.int32)))),
+        "device pack (one scalar read)": host_ms(
+            lambda: pack.pack_streams(streams, sizes, header)),
+        "D2H packed codestream": host_ms(lambda: packed.cpu()),
+        "H2D packed codestream": host_ms(
+            lambda: torch.from_numpy(shorts.view(np.int16)).to(dev)),
+        "device unpack": device_ms(
+            lambda: pack.unpack_streams(packed, codec.ncb, payload)),
         "BPC decode kernel": dec_kernel,
         "untile+IDWT+clamp": device_ms(
             lambda: codec._finish_gray_impl(codec._untile_idwt_impl(blocks))),
     }
     for name, times in layers.items():
         report(f"layer {name}", times, rate=False)
-    print(f"{tag} host packed codestream {packed.size * 2} B, native pack "
-          f"{'on' if native.available() else 'off (NumPy)'}")
+    print(f"{tag} packed codestream {shorts.nbytes} B crosses PCIe each "
+          f"way (the raw stream buffers: {streams.nbytes + sizes.nbytes} B)")
 
     # ---- 7. probes K3/K4: kernel vs plain, then their entry points -------
     perr = {"probe": 0, "probe2": 0}
@@ -514,12 +530,13 @@ def main() -> int:
 
     # ---- 8. lossy 9/7 gray, BASELINE config 2 (2048^2 wl=3 qs=1) ---------
     def check_planes(label, cfg, luts, lut_params, planes, host,
-                     picks=False):
+                     picks=None):
         """A path's planes on the card: each component's BPC kernels against
         their plain versions at the path's shapes, n_planes and LUT; with
         `host`, also the card's quantized codeblocks, inverse DWT and decoded
         samples against a CPU TorchCodec's; with `picks`, one codeblock of
-        every band against the oracle. Returns the decoded planes, the
+        every band against the oracle's digests of the `picks` key =
+        (coding passes, k, LUT folder). Returns the decoded planes, the
         codec, its codeblocks and streams per component, and n_planes."""
         c = TorchCodec(cfg, luts, lut_params, dev)
         tiled = [c._dwt_tile_impl(x)
@@ -533,8 +550,7 @@ def main() -> int:
             compare_decode(s_, z_, c._bpc_args(i), c._bpc_kw, n_pl, blocks,
                            what)
             coded.append((s_, z_))
-        n_picks = (oracle_picks(label, c, tiled[0][0], *coded[0], luts[0],
-                                cfg.coding_passes, cfg.k_factor)
+        n_picks = (oracle_picks(label, c, tiled[0][0], *coded[0], picks)
                    if picks else 0)
         comps = [c._untile_idwt_impl(b) for b, _ in tiled]
         out = [o.cpu() for o in c._finish_impl(comps)]
@@ -595,19 +611,14 @@ def main() -> int:
                            wavelet_levels=LOSSY_LEVELS, is_lossy=True, qs=1.0)
     codec_l512 = TorchCodec(cfg_l512, luts_l, params, dev)
     got = codec_l512.encode(img512)
-    t0 = time.perf_counter()
-    want = oracle_codec.encode_image(img512, cfg_l512, luts_l, params)
-    oracle_db = psnr(oracle_codec.decode_image(want, cfg_l512, luts_l,
-                                               params), img512)
-    oracle_s = time.perf_counter() - t0
-    _require(np.array_equal(got[0], want[0]),
-             "512^2 wl=3 lossy codestream == oracle")
-    port_db = psnr(codec_l512.decode(got), img512)
-    _require(port_db >= oracle_db - 0.05,
-             f"512^2 lossy PSNR {port_db:.4f} >= oracle {oracle_db:.4f} - 0.05")
-    print(f"{tag} 512^2 wl=3 lossy: codestream byte-equal to the oracle "
-          f"({got[0].size} shorts), PSNR {port_db:.4f} dB vs oracle "
-          f"{oracle_db:.4f} dB (oracle took {oracle_s:.1f} s on the host)")
+    _require(goldens.digest(got[0]) == goldens.LOSSY_512["codestream"],
+             "512^2 wl=3 lossy codestream == the oracle's (digest)")
+    dec512 = codec_l512.decode(got)
+    _require(goldens.digest(dec512) == goldens.LOSSY_512["decoded"],
+             "512^2 wl=3 lossy decoded samples == the oracle's (digest)")
+    print(f"{tag} 512^2 wl=3 lossy: codestream and decoded samples "
+          f"byte-equal to the oracle's ({got[0].size} shorts, SHA-256), "
+          f"PSNR {psnr(dec512, img512):.4f} dB")
 
     # ---- 9. planar RGB 2048x2560, lossless RCT and lossy ICT -------------
     rgb = [make_image(RGB_H, seed=s, width=RGB_W) for s in (5, 6, 7)]
@@ -707,7 +718,7 @@ def main() -> int:
             luts_m, params_m = cli._load_luts(lut_folder, LEVELS, cp, k)
             label = f"{SIZE}^2 -cp {cp} -k {k:g} {lut_folder} plane"
             checked = check_planes(label, cfg_m, luts_m, params_m, [img],
-                                   host=False, picks=True)
+                                   host=False, picks=(cp, k, lut_folder))
             _require(same_planes([img], checked[0]),
                      f"{label}: card decode == input")
             if lut_folder == "neutral":
@@ -742,8 +753,9 @@ def main() -> int:
                 lambda: [bpc_cuda.encode_blocks(b, *c._bpc_args(i),
                                                 **c._bpc_kw, n_planes=n_pl)
                          for i, b in enumerate(blocks)]),
-            "D2H streams+sizes": host_ms(
-                lambda: [(s_.cpu(), z_.cpu()) for s_, z_ in coded]),
+            "device pack + D2H packed": host_ms(
+                lambda: [pack.pack_streams(s_, z_, None).cpu()
+                         for s_, z_ in coded]),
             "BPC decode kernel": device_ms(
                 lambda: [bpc_cuda.decode_blocks(s_, z_, *c._bpc_args(i),
                                                 **c._bpc_kw, n_planes=n_pl)
@@ -779,6 +791,54 @@ def main() -> int:
                gray_job("trained", lossy=True, k=K)[2])
     tmp.cleanup()
 
+    # ---- 13. 8192^2 wl=5: 16384 codeblocks, a size that fills the card ---
+    big = gpu(make_image(BIG))
+    big_ms = {}
+    for mode, cp, k in (("cp2", 2, 0.0), ("cp3", 3, 0.0), ("bulk", 2, K)):
+        cfg_b = CodecConfig(width=BIG, height=BIG, wavelet_levels=LEVELS,
+                            coding_passes=cp, k_factor=k)
+        luts_b, params_b = cli._load_luts("neutral", LEVELS, cp, k)
+        cb = TorchCodec(cfg_b, luts_b, params_b, dev)
+        blocks_b, mx = cb._dwt_tile_impl(cb._prep_gray_impl(big))
+        n_pl = bpc.planes_for_magnitude(int(mx))
+        a, kw = cb._bpc_args(), dict(cb._bpc_kw, n_planes=n_pl)
+        s_b, z_b = bpc_cuda.encode_blocks(blocks_b, *a, **kw)
+        _require(torch.equal(bpc_cuda.decode_blocks(s_b, z_b, *a, **kw),
+                             blocks_b), f"{BIG}^2 {mode}: decode == input")
+        # 64 blocks spread over the plane, against the plain coder
+        idx = torch.linspace(0, blocks_b.shape[0] - 1, BIG_PICKS,
+                             device=dev).long()
+        sub = (a[0], *(m[idx] for m in a[1:]))
+        s_p, z_p = bpc.encode_blocks_plain(blocks_b[idx], *sub, **kw)
+        e = max(int((s_p.long() - s_b[idx].long()).abs().max()),
+                int((z_p.long() - z_b[idx].long()).abs().max()))
+        err[mode]["encode"] = max(err[mode]["encode"], e)
+        _require(e == 0, f"{BIG}^2 {mode}: {BIG_PICKS} picked blocks, "
+                 f"encode kernel == plain, max err {e}")
+        o_p = bpc.decode_blocks_plain(s_b[idx], z_b[idx], *sub, **kw)
+        e = int((o_p.long() - blocks_b[idx].long()).abs().max())
+        err[mode]["decode"] = max(err[mode]["decode"], e)
+        _require(e == 0, f"{BIG}^2 {mode}: {BIG_PICKS} picked blocks, "
+                 f"plain decode of the kernel's streams == input")
+        bound, by = bpc_cuda.bound_ms(blocks_b)
+        big_ms[mode] = {
+            "encode": report(f"{BIG}^2 BPC encode kernel {mode}", device_ms(
+                lambda: bpc_cuda.encode_blocks(blocks_b, *a, **kw),
+                iters=5, per=KERNEL_BATCH), rate=False),
+            "decode": report(f"{BIG}^2 BPC decode kernel {mode}", device_ms(
+                lambda: bpc_cuda.decode_blocks(s_b, z_b, *a, **kw),
+                iters=5, per=KERNEL_BATCH), rate=False)}
+        print(f"{tag} {BIG}^2 wl={LEVELS} {mode}: {blocks_b.shape[0]} "
+              f"codeblocks, n_planes {n_pl}; kernels' round trip == input, "
+              f"{BIG_PICKS} picked blocks byte-equal to plain; bound "
+              f"{bound:.4f} ms ({by}), share encode "
+              f"{bound / big_ms[mode]['encode']:.4f}, decode "
+              f"{bound / big_ms[mode]['decode']:.4f}")
+    del big
+
+    # each BPC kernel's bound at the main path's shapes: the same symbols
+    # in every mode and direction
+    bpc_bound, bpc_by = bpc_cuda.bound_ms(blocks)
     src_dir = "picsong_tpu_torch/csrc"
     jax_src = "picsong_tpu/entropy/bpc_jax.py"
     replaces = {
@@ -797,18 +857,19 @@ def main() -> int:
                 "route": "cuda", "source": f"{src_dir}/bpc_{d}.cu",
                 "replaces": replaces[(mode, d)],
                 "launches": launches[mode][d], "max_abs_err": err[mode][d],
-                "ms": kt[mode][d], "plain_ms": kt[mode][f"{d} plain"]})
-    entries += [
-        {"name": "probe", "route": "cuda", "source": f"{src_dir}/probe.cu",
-         "replaces": "tools/pallas_probe.py:58",
-         "launches": probe_launches["probe"], "max_abs_err": perr["probe"],
-         "ms": pt["probe"], "plain_ms": pt["probe plain"]},
-        {"name": "probe2", "route": "cuda", "source": f"{src_dir}/probe2.cu",
-         "replaces": "tools/pallas_probe2.py:54",
-         "launches": probe_launches["probe2"],
-         "max_abs_err": perr["probe2"],
-         "ms": pt["probe2"], "plain_ms": pt["probe2 plain"]},
-    ]
+                "ms": kt[mode][d], "plain_ms": kt[mode][f"{d} plain"],
+                "bound_ms": bpc_bound, "bound_by": bpc_by,
+                # no single PyTorch call computes BPC-PaCo
+                "library_ms": None})
+    for name, line in (("probe", 58), ("probe2", 54)):
+        module = probe if name == "probe" else probe2
+        bound, by = module.bound_ms(*(gpu(x) for x in module.inputs(0)))
+        entries.append({
+            "name": name, "route": "cuda", "source": f"{src_dir}/{name}.cu",
+            "replaces": f"tools/pallas_{name}.py:{line}",
+            "launches": probe_launches[name], "max_abs_err": perr[name],
+            "ms": pt[name], "plain_ms": pt[name + " plain"],
+            "bound_ms": bound, "bound_by": by, "library_ms": None})
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -9,15 +9,20 @@ coder's own mapping), and the two Mosaic probes of `tools/` have their
 CUDA counterparts too; each kernel has a plain PyTorch version beside it
 that the CPU runs and the tests compare against.
 
-Nothing here imports JAX. The framework-neutral layers of `picsong_tpu`
-are shared, not copied: `core` (spec, header, LUT parser, image IO,
-codeblock bands), `reference` (the NumPy oracle), `assembly.pack` and
-`native` (host pack/unpack).
+Nothing here imports JAX or `picsong_tpu`: the port keeps its own copies
+of the codestream spec, header, LUT parser and image IO (`core/`), reads
+the shared LUT data files under `luts/`, and packs codestreams on the
+device (`assembly/pack.py`).
 
 Layer map (mirrors picsong_tpu):
-  core/geometry.py    codeblock tiling of a plane (torch reshapes)
+  core/spec.py        codec constants and the codestream specification
+  core/header.py      CodecConfig and the 9-short header
+  core/lut.py         LUT folder parser, neutral tables, group bases
+  core/image_io.py    PGM/RAW/codestream files, mirror padding
+  core/geometry.py    codeblock bands (host) and tiling (torch reshapes)
+  assembly/pack.py    codestream pack/unpack as torch ops on the device
   transform/dwt.py    lifting DWT 5/3 (int32) and 9/7 (float32), both ways
-  entropy/bpc.py      plain PyTorch BPC-PaCo cp=2 k=0 + host metadata helpers
+  entropy/bpc.py      plain PyTorch BPC-PaCo (cp=2, cp=3, -k) + host metadata
   entropy/bpc_cuda.py device dispatch: CPU -> plain, CUDA -> the kernels
   csrc/               the CUDA C++ kernels (bpc_encode.cu, bpc_decode.cu,
                       probe.cu, probe2.cu)

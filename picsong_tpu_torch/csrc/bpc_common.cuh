@@ -10,7 +10,7 @@
 // A word is (|v| << 1) | sign in bits 0-23, the plane at which it became
 // significant in bits 24-28, refinement in bit 29, the cleanup-pass
 // candidate (cp=3) in bit 30, significance in bit 31
-// (picsong_tpu/core/spec.py:39-43).
+// (picsong_tpu_torch/core/spec.py).
 //
 // Three modes, each a template instantiation of both kernels: cp=2 k=0
 // (SPP, MRP), cp=3 (SPP, MRP, CP) and cp=2 with k > 0 (SPP, MRP down to

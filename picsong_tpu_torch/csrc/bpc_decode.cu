@@ -16,11 +16,14 @@
 // out of their lane-major layout and empty blocks (word 0 == 32) decode to
 // zeros, as in the Pallas wrapper.
 //
-// What bounds it on this card: the same serial per-warp scan as the
-// encoder, one dependent chain of coding steps per codeblock with ~8 warps
-// per SM at 1024 codeblocks, so latency, not bandwidth. Codeword reads are
+// What bounds it on this card: the same warp chain as the encoder's (see
+// bpc_encode.cu), and unlike the encoder's it cannot be split: every
+// context depends on the symbols decoded before it. The design shortens
+// each step as the encoder does: a branch-free decoder step, and sign steps
+// without a newly significant lane skipped in SPP and CP (in the bulk
+// pass the vote cost more than it saved at 16384 blocks). Codeword reads are
 // data-dependent but sequential per block (slot = counter + rank), so they
-// hit the same few cache lines of a 16 KB stream in turn. The Pallas
+// hit the same few cache lines of a 16 KB stream in turn; the Pallas
 // kernel's tape slabs, fetch window, one-hot contraction and DMA
 // semaphores worked around Mosaic's missing gather and have no
 // counterpart: a lane simply loads stream[slot].
@@ -40,31 +43,23 @@ __device__ __forceinline__ int to_coeff(uint32_t w) {
   return (w & 1u) ? -mag : mag;
 }
 
-// One arithmetic-decoder step for the whole warp (bpc_jax._ac_decode). The
-// codeword compare is unsigned: unwritten slots hold -1 = 0xFFFFFFFF.
+// One arithmetic-decoder step for the whole warp (bpc_jax._ac_decode),
+// without branches but the predicated codeword load. The codeword compare
+// is unsigned: unwritten slots hold -1 = 0xFFFFFFFF.
 __device__ __forceinline__ int ac_decode(DecoderLane& s, int& counter,
                                          bool active, int prob, int prec,
                                          int lane, const int32_t* cs) {
   const bool need = active && s.size == 0;
   const int slot = reserve(need, counter, lane);
-  if (need) {
-    s.cw = (uint32_t)cs[slot];
-    s.low = 0;
-    s.size = kIntervalInit;
-  }
-  int sym = 0;
-  if (active) {
-    const int aux = ((s.size * prob) >> prec) + 1;
-    const int aux2 = s.low + aux;
-    if (s.cw >= (uint32_t)aux2) {
-      s.size -= aux;
-      s.low = aux2;
-      sym = 1;
-    } else {
-      s.size = aux - 1;
-    }
-  }
-  return sym;
+  if (need) s.cw = (uint32_t)cs[slot];
+  const int size = need ? kIntervalInit : s.size;
+  const int low = need ? 0 : s.low;
+  const int aux = ((size * prob) >> prec) + 1;
+  const int aux2 = low + aux;
+  const bool one = active && s.cw >= (uint32_t)aux2;
+  s.size = active ? (one ? size - aux : aux - 1) : size;
+  s.low = one ? aux2 : low;
+  return one ? 1 : 0;
 }
 
 // The decoder's approximation mask at a plane: 0x3 << p, or 0x2 at p == 0.
@@ -114,7 +109,9 @@ struct Decoder {
         const bool active = CP == 3 ? insig && ctx > 0 : insig;
         const int bit = code(active, pp[kSigRow + ctx]);
         const bool newly = active && bit;
-        const uint32_t upd = sign(newly, nb, 0, pp + kSignRow, set);
+        const uint32_t upd = __any_sync(kFullMask, newly)
+                                 ? sign(newly, nb, 0, pp + kSignRow, set)
+                                 : set;
         if (newly) {
           *cell(g, r, lane, phase) = nb.cur | upd;
         } else if (CP == 3 && insig && ctx == 0) {
@@ -156,7 +153,9 @@ struct Decoder {
         const bool active = (nb.cur >> 30) & 1u;
         const int bit = code(active, pp[kCpSigRow + sig_ctx(nb)]);
         const bool newly = active && bit;
-        const uint32_t upd = sign(newly, nb, 0, pp + kCpSignRow, set);
+        const uint32_t upd = __any_sync(kFullMask, newly)
+                                 ? sign(newly, nb, 0, pp + kCpSignRow, set)
+                                 : set;
         if (active) {
           *cell(g, r, lane, phase) = (nb.cur & ~kCpBit) | (newly ? upd : 0u);
         }

@@ -24,18 +24,39 @@
 // never reserved), then word 0 takes the MSB (32 when empty); a block whose
 // size reaches 4096 becomes the lane-major raw copy.
 //
-// What bounds it on this card: the serial scan. Each step of a block
-// depends on the previous one (the coder state and the slot counter), so a
-// warp issues a chain of ~10^4 dependent shared-memory and ballot steps,
-// and 1024 codeblocks give only ~8 warps per SM on 132 SMs: the kernel is
-// latency-bound, not bandwidth-bound (it reads 16 KB and writes 16 KB per
-// block). The design keeps the whole chain on-chip: the grids in 17 KB of
-// shared memory, the block's probabilities in at most 3.4 KB more, the
-// coder state in registers, one ballot per coding step for the slot ranks,
-// and no staging of codewords; the Pallas kernel's event tape, staging
-// windows, DMA semaphores and scatter post-pass existed only because
-// Mosaic has no scatter and have no counterpart here. The mode is a
-// template parameter, so the cp2 variant carries no test of the others.
+// What bounds it on this card: one warp's dependency chain, not bytes or
+// operations. A block reads 16 KB and writes 16 KB (1024 blocks: 33.6 MB,
+// 10 us at 3.35 TB/s) and codes (MSB + 1) x 4096 cell-planes plus one sign
+// per nonzero coefficient at about a dozen int32 operations each (18 us
+// at 2048^2 wl=5 on 16.7 int32 Tops/s). But every step depends on the one
+// before (the lane's interval, the block's slot counter, the grid), so a
+// block is a chain of ~10^3-10^4 warp steps: measured on one H100, one
+// block alone takes as long as 528 copies of it (`tools/kernel_ab.py
+// --sweep`, PERF.md PR 4), and at 1024 blocks the kernel time is the
+// longest block's chain; at 16384 blocks it is about that chain times the
+// ~11 waves of resident CTAs.
+// The design therefore keeps the whole chain on-chip and short: the grids
+// in 17 KB of shared memory, the block's probabilities in at most 3.4 KB
+// more, the coder state in registers, one ballot per coding step for the
+// slot ranks, no staging of codewords (the Pallas kernel's event tape,
+// staging windows, DMA semaphores and scatter post-pass existed only
+// because Mosaic has no scatter), and two measures that shorten the step:
+// - the coder step has no branch: selects and one predicated store, so a
+//   step carries no divergence and reconvergence barrier (BSSY/BSYNC)
+//   around its data-dependent conditions;
+// - a sign step in which no lane turned significant reserves nothing and
+//   changes nothing, so it is skipped on a warp vote; that removes most
+//   sign steps of the high planes and of the bulk pass.
+// Other designs were measured on one H100 and dropped (PERF.md PR 4):
+// contexts from warp-uniform significance row masks with a symbol pass 8
+// rows ahead of the coder (slower at 16384 blocks); the scan recording
+// each lane's symbols for 32 steps, each lane then coding its own list
+// and the slots assigned by one ballot per reserving step (2.4x slower:
+// every symbol costs two dependent shared loads on the lane's chain, and
+// the slot loop is serial); the grid's update moved ahead of the coder
+// (cp2 4% faster, cp3 and bulk slower); and skipping MRP passes that code
+// nothing (faster here, slower decoders). The mode is a template
+// parameter, so the cp2 variant carries no test of the others.
 #include "bpc_common.cuh"
 
 namespace picsong {
@@ -52,27 +73,21 @@ __device__ __forceinline__ uint32_t to_word(int32_t v) {
   return (mag << 1) | (v < 0 ? 1u : 0u);
 }
 
-// One arithmetic-coder step for the whole warp (bpc_jax._ac_encode).
+// One arithmetic-coder step for the whole warp (bpc_jax._ac_encode),
+// without branches but the predicated codeword store.
 __device__ __forceinline__ void ac_encode(EncoderLane& s, int& counter,
                                           bool active, int bit, int prob,
                                           int prec, int lane, int32_t* out) {
   const bool need = active && s.size == 0;
   const int slot = reserve(need, counter, lane);
-  if (need) {
-    s.resv = slot;
-    s.low = 0;
-    s.size = kIntervalInit;
-  }
-  if (active) {
-    const int aux = ((s.size * prob) >> prec) + bit;
-    if (bit) {
-      s.low += aux;
-      s.size -= aux;
-    } else {
-      s.size = aux;
-    }
-    if (s.size == 0) out[s.resv] = s.low;
-  }
+  s.resv = need ? slot : s.resv;
+  const int size = need ? kIntervalInit : s.size;
+  const int low = need ? 0 : s.low;
+  const int aux = ((size * prob) >> prec) + bit;
+  const int nsize = bit ? size - aux : aux;
+  s.low = active && bit ? low + aux : low;
+  s.size = active ? nsize : size;
+  if (active && nsize == 0) out[s.resv] = s.low;
 }
 
 struct Encoder {
@@ -105,9 +120,11 @@ struct Encoder {
         code(active, bit, pp[kSigRow + ctx]);
         // the sign step runs only after the significance step of all lanes
         const bool newly = active && bit;
-        const int sctx = sign_ctx(nb);
-        const int ssym = ((int)(nb.cur & 1u) == (sctx & 1)) ? 0 : 1;
-        code(newly, ssym, pp[kSignRow + (sctx >> 1)]);
+        if (__any_sync(kFullMask, newly)) {
+          const int sctx = sign_ctx(nb);
+          const int ssym = ((int)(nb.cur & 1u) == (sctx & 1)) ? 0 : 1;
+          code(newly, ssym, pp[kSignRow + (sctx >> 1)]);
+        }
         if (newly) {
           *cell(g, r, lane, phase) = nb.cur | flag;
         } else if (CP == 3 && insig && ctx == 0) {
@@ -144,9 +161,11 @@ struct Encoder {
         const int bit = magnitude_bit(nb.cur, plane);
         code(active, bit, pp[kCpSigRow + sig_ctx(nb)]);
         const bool newly = active && bit;
-        const int sctx = sign_ctx(nb);
-        const int ssym = ((int)(nb.cur & 1u) == (sctx & 1)) ? 0 : 1;
-        code(newly, ssym, pp[kCpSignRow + (sctx >> 1)]);
+        if (__any_sync(kFullMask, newly)) {
+          const int sctx = sign_ctx(nb);
+          const int ssym = ((int)(nb.cur & 1u) == (sctx & 1)) ? 0 : 1;
+          code(newly, ssym, pp[kCpSignRow + (sctx >> 1)]);
+        }
         if (active) {
           *cell(g, r, lane, phase) = (nb.cur & ~kCpBit) | (newly ? flag : 0u);
         }
@@ -175,9 +194,11 @@ struct Encoder {
           code(sig, bit, pp[kRefRow]);
           code(!sig, bit, pp[kSigRow + ctx]);
           const bool newly = !sig && bit;
-          const int sctx = sign_ctx(nb, plane);
-          const int ssym = ((int)(work & 1u) == (sctx & 1)) ? 0 : 1;
-          code(newly, ssym, pp[kSignRow + (sctx >> 1)]);
+          if (__any_sync(kFullMask, newly)) {
+            const int sctx = sign_ctx(nb, plane);
+            const int ssym = ((int)(work & 1u) == (sctx & 1)) ? 0 : 1;
+            code(newly, ssym, pp[kSignRow + (sctx >> 1)]);
+          }
           if (newly) work |= kSigBit | ((uint32_t)plane << 24);
         }
         *cell(g, r, lane, phase) = work;

@@ -28,14 +28,12 @@ import time
 
 import numpy as np
 
-from picsong_tpu.core.header import CodecConfig, unpack_header
-from picsong_tpu.core.image_io import (append_raw_frame, read_codestream,
-                                       read_header_shorts, read_pgm,
-                                       read_raw_frame, read_sizes,
-                                       sample_dtype, write_codestream,
-                                       write_pgm)
-from picsong_tpu.core.lut import LUTParams, load_luts, neutral_lut
-
+from ..core.header import CodecConfig, unpack_header
+from ..core.image_io import (append_raw_frame, read_codestream,
+                             read_header_shorts, read_pgm, read_raw_frame,
+                             read_sizes, sample_dtype, write_codestream,
+                             write_pgm)
+from ..core.lut import LUTParams, load_luts, neutral_lut
 from .pipeline import TorchCodec
 
 HELP = """PICSONG codec, PyTorch/CUDA port. Options (reference-compatible):

@@ -8,9 +8,10 @@ shift (and RCT or ICT) -> multi-level DWT -> 64x64 codeblock tiling ->
 BPC-PaCo encode per component, and the mirror BPC-PaCo decode -> untile
 -> inverse DWT -> inverse color transform -> clamp; on a CUDA device the
 BPC steps are the hand-written kernels, in the variant of the coding mode
-(cp=2, cp=3, or bulk for k > 0). Packing and unpacking of the codestream
-stay on the host (`picsong_tpu.native.pack_streams` / `unpack_streams`),
-as in TPUCodec: one codestream per component, the header on the first.
+(cp=2, cp=3, or bulk for k > 0). The codestream is packed and unpacked on
+the codec's device (`assembly/pack.py`), so only the packed bytes cross
+to and from the host: one codestream per component, the header on the
+first, the bytes of TPUCodec's host pack.
 
 The bitplane count comes from one read of the coefficient maximum over
 all components after the DWT. TPUCodec instead replicated the DWT on the
@@ -27,14 +28,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from picsong_tpu import native
-from picsong_tpu.core import spec
-from picsong_tpu.core.geometry import codeblock_bands
-from picsong_tpu.core.header import CodecConfig, pack_header
-from picsong_tpu.core.image_io import mirror_pad, sample_dtype
-from picsong_tpu.core.lut import LUTParams
-
-from ..core.geometry import codeblocks_to_plane, plane_to_codeblocks
+from ..assembly import pack
+from ..core import spec
+from ..core.geometry import (codeblock_bands, codeblocks_to_plane,
+                             plane_to_codeblocks)
+from ..core.header import CodecConfig, pack_header
+from ..core.image_io import mirror_pad, sample_dtype
+from ..core.lut import LUTParams
 from ..entropy import bpc, bpc_cuda
 from ..obs.trace import StageTimers
 from ..transform.dwt import dwt_forward, dwt_reverse
@@ -243,12 +243,14 @@ class TorchCodec:
             coded, n_planes = self.encode_planes(samples)
         out = []
         for i, (streams, sizes) in enumerate(coded):
-            with self.timers.stage("encode/download"):
-                streams, sizes = streams.cpu().numpy(), sizes.cpu().numpy()
-            bpc.check_planes_bound(streams[:, 0], sizes, n_planes)
             with self.timers.stage("encode/pack"):
-                out.append(native.pack_streams(
-                    streams, sizes, pack_header(self.cfg) if i == 0 else None))
+                packed = pack.pack_streams(
+                    streams, sizes, pack_header(self.cfg) if i == 0 else None)
+            with self.timers.stage("encode/download"):
+                shorts = packed.cpu().numpy().view(np.uint16)
+            bpc.check_planes_bound(*pack.block_fields(shorts, self.ncb),
+                                   n_planes)
+            out.append(shorts)
         return out
 
     def decode(self, component_streams: list[np.ndarray]):
@@ -259,13 +261,16 @@ class TorchCodec:
                              f"codestreams, got {len(component_streams)}")
         coded = []
         for shorts in component_streams:
-            with self.timers.stage("decode/unpack"):
-                streams, sizes = native.unpack_streams(shorts, self.ncb)
-            n_planes = bpc.planes_for_streams(streams[:, 0], sizes)
+            shorts = np.ascontiguousarray(shorts, dtype=np.uint16)
+            msb, sizes = pack.block_fields(shorts, self.ncb)
+            n_planes = bpc.planes_for_streams(msb, sizes)
             with self.timers.stage("decode/upload"):
-                coded.append((torch.from_numpy(streams).to(self.device),
-                              torch.from_numpy(sizes.astype(np.int32))
-                              .to(self.device), n_planes))
+                packed = torch.from_numpy(shorts.view(np.int16)).to(
+                    self.device)
+            with self.timers.stage("decode/unpack"):
+                streams, sizes_d = pack.unpack_streams(
+                    packed, self.ncb, int(sizes.sum()) - self.ncb)
+            coded.append((streams, sizes_d, n_planes))
         with self.timers.stage("decode/bpc+idwt"):
             planes = self.decode_planes(coded)
         with self.timers.stage("decode/download"):

@@ -41,13 +41,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from picsong_tpu.core import spec
-from picsong_tpu.core.lut import LUTParams, group_base
+from ..core import spec
+from ..core.lut import LUTParams, group_base
 
 _LANES = spec.LANES
 _ROWS = spec.CBLOCK_LENGTH
 _SIG_BIT = 1 << spec.BIT_SIGNIFICANT
-_CP_BIT = 1 << 30
+_CP_BIT = 1 << spec.BIT_CP_CANDIDATE
 _REF_BIT = 1 << spec.BIT_REFINEMENT
 _I64 = torch.int64
 

@@ -18,14 +18,23 @@ from __future__ import annotations
 
 import torch
 
-from picsong_tpu.core import spec
-from picsong_tpu.core.lut import LUTParams
+from ..core import spec
+from ..core.lut import LUTParams
 
 from .. import kernels
 from . import bpc
 
 # the kernels' picsong::Mode values
 MODES = {"cp2": 0, "cp3": 1, "bulk": 2}
+
+# int32 operations of one coding step of a lane (ac_encode / ac_decode:
+# the interval multiply, shift, add, compare and selects), the count the
+# work bound of `bound_ms` charges per coded symbol
+OPS_PER_STEP = 12
+# the H100 SXM's int32 rate outside the tensor cores: 132 SMs x 64 int32
+# lanes x 1.98 GHz, and its memory rate
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+BYTES_PER_S = 3.35e12
 ENCODE_LAUNCHES = dict.fromkeys(MODES, 0)
 DECODE_LAUNCHES = dict.fromkeys(MODES, 0)
 
@@ -42,6 +51,25 @@ def mode_of(coding_passes: int, has_k: bool) -> str:
     if coding_passes == 3:
         return "cp3"
     return "bulk" if has_k else "cp2"
+
+
+def bound_ms(blocks: torch.Tensor) -> tuple[float, str]:
+    """The least time an H100 could take to encode (or decode) these
+    (N, 64, 64) codeblocks, and what bounds it: the larger of the bytes
+    (the blocks read once, the (N, 4096) streams written once; the reverse
+    for decode) over the memory rate, and the coded symbols (every cell of
+    every plane from each block's MSB down, plus one sign per nonzero
+    coefficient) times OPS_PER_STEP over the int32 rate."""
+    n = blocks.shape[0]
+    mag = blocks.reshape(n, -1).abs().amax(dim=1).cpu().to(torch.int64)
+    powers = 2 ** torch.arange(32, dtype=torch.int64)
+    msb = (mag[:, None] >= powers[None, :]).sum(dim=1) - 1
+    steps = float((msb + 1).sum()) * blocks[0].numel() + float(
+        torch.count_nonzero(blocks))
+    ops_s = steps * OPS_PER_STEP / INT32_OPS_PER_S
+    bytes_s = 2 * n * blocks[0].numel() * 4 / BYTES_PER_S
+    return (max(ops_s, bytes_s) * 1e3,
+            "operations" if ops_s >= bytes_s else "bytes")
 
 
 def _device_type(*tensors: torch.Tensor) -> str:
@@ -92,8 +120,10 @@ def _stream() -> int:
 
 def encode_blocks(blocks, lut, ref_b, sig_b, sign_b, cp_sig_b, cp_sign_b,
                   k_over_l2, *, params: LUTParams, wavelet_levels: int,
-                  coding_passes: int, has_k: bool, n_planes: int):
-    """(N, 64, 64) int32 codeblocks -> (streams (N, 4096), sizes (N,))."""
+                  coding_passes: int, has_k: bool, n_planes: int, lib=None):
+    """(N, 64, 64) int32 codeblocks -> (streams (N, 4096), sizes (N,)).
+    `lib` is the kernel library to launch (default: the package's own;
+    `tools/kernel_ab.py` passes another tree's)."""
     meta = (ref_b, sig_b, sign_b, cp_sig_b, cp_sign_b, k_over_l2)
     kw = dict(params=params, wavelet_levels=wavelet_levels,
               coding_passes=coding_passes, has_k=has_k, n_planes=n_planes)
@@ -104,7 +134,7 @@ def encode_blocks(blocks, lut, ref_b, sig_b, sign_b, cp_sig_b, cp_sign_b,
     _check(blocks, "blocks", (n, spec.CBLOCK_LENGTH, spec.CBLOCK_WIDTH))
     _check_aligned(blocks, "blocks")
     ptrs = _meta_pointers(n, lut, meta, n_planes)
-    lib = kernels.library()
+    lib = lib or kernels.library()
     streams = torch.empty((n, spec.CBLOCK_SIZE), dtype=torch.int32,
                           device=blocks.device)
     sizes = torch.empty(n, dtype=torch.int32, device=blocks.device)
@@ -122,7 +152,7 @@ def encode_blocks(blocks, lut, ref_b, sig_b, sign_b, cp_sig_b, cp_sign_b,
 def decode_blocks(streams, sizes, lut, ref_b, sig_b, sign_b, cp_sig_b,
                   cp_sign_b, k_over_l2, *, params: LUTParams,
                   wavelet_levels: int, coding_passes: int, has_k: bool,
-                  n_planes: int):
+                  n_planes: int, lib=None):
     """(N, 4096) int32 streams + (N,) int32 sizes -> (N, 64, 64) int32."""
     meta = (ref_b, sig_b, sign_b, cp_sig_b, cp_sign_b, k_over_l2)
     kw = dict(params=params, wavelet_levels=wavelet_levels,
@@ -135,7 +165,7 @@ def decode_blocks(streams, sizes, lut, ref_b, sig_b, sign_b, cp_sig_b,
     _check(sizes, "sizes", (n,))
     _check_aligned(streams, "streams")
     ptrs = _meta_pointers(n, lut, meta, n_planes)
-    lib = kernels.library()
+    lib = lib or kernels.library()
     out = torch.empty((n, spec.CBLOCK_LENGTH, spec.CBLOCK_WIDTH),
                       dtype=torch.int32, device=streams.device)
     if n == 0:

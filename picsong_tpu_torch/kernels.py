@@ -71,8 +71,8 @@ def find_nvcc() -> str:
     return found
 
 
-def sources() -> list[str]:
-    return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
+def sources(csrc_dir: str = CSRC_DIR) -> list[str]:
+    return sorted(glob.glob(os.path.join(csrc_dir, "*.cu")))
 
 
 def _start(cmd: list[str]) -> subprocess.Popen:
@@ -91,8 +91,10 @@ def _finish(cmd: list[str], proc: subprocess.Popen) -> str:
     return out
 
 
-def build(nvcc: str | None = None, build_dir: str = BUILD_DIR) -> tuple[str, str]:
-    """Compile csrc/*.cu into build_dir/libpicsong_kernels.so.
+def build(nvcc: str | None = None, build_dir: str = BUILD_DIR,
+          csrc_dir: str = CSRC_DIR) -> tuple[str, str]:
+    """Compile csrc_dir/*.cu (the package's csrc/ unless another tree's is
+    named, as an A/B timing does) into build_dir/libpicsong_kernels.so.
 
     Returns (library path, compiler output, which holds ptxas's register
     and shared-memory report)."""
@@ -102,7 +104,7 @@ def build(nvcc: str | None = None, build_dir: str = BUILD_DIR) -> tuple[str, str
     tag = f"{os.getpid()}.tmp"
     jobs = []
     try:
-        for src in sources():
+        for src in sources(csrc_dir):
             obj = os.path.join(build_dir,
                                f"{os.path.basename(src)[:-3]}.{tag}.o")
             cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
@@ -137,6 +139,13 @@ def library(nvcc: str | None = None, build_dir: str = BUILD_DIR) -> ctypes.CDLL:
         return _loaded[lib_path]
     if _stale(lib_path):
         build(nvcc, build_dir)
+    return load(lib_path)
+
+
+def load(lib_path: str) -> ctypes.CDLL:
+    """Load a built kernel library and declare its entry points."""
+    if lib_path in _loaded:
+        return _loaded[lib_path]
     try:
         lib = ctypes.CDLL(lib_path)
     except OSError as e:

@@ -22,11 +22,17 @@ import numpy as np
 import torch
 
 from .. import kernels
+from ..entropy.bpc_cuda import BYTES_PER_S, INT32_OPS_PER_S
 
 C = 128        # codeblock chunk
 CAP = 512      # tape row length
 ROWS = 32
 STEPS = 64
+# int32 operations of one output cell: v >> 1, v > 100 and their sum, the
+# STEPS accumulation adds, the fetched word's add; and of one column: the
+# window floor, the rank, the gather's index and row 0's doubling
+OPS_PER_CELL = 3 + STEPS + 1
+OPS_PER_COLUMN = 4
 
 LAUNCHES = 0
 
@@ -47,6 +53,26 @@ def plain(tape: torch.Tensor, base: torch.Tensor) -> torch.Tensor:
     row0 = torch.where(base[0] > 0, 2, 1).to(out.device)
     out = torch.cat([out[:1] * row0, out[1:]])
     return wrap32(out)
+
+
+def words_moved(tape: torch.Tensor, base: torch.Tensor) -> int:
+    """The int32 words the function must read or write on these inputs:
+    tape[0:32, 0:128], each column's gathered word where it lies outside
+    that block, base, and the (32, 128) output. Column n's gathered word
+    lies inside the block iff n < 32 and base[n] < 128 (its window starts
+    at 0)."""
+    inside = int((base[:ROWS] < C).sum())
+    return ROWS * C + (C - inside) + C + ROWS * C
+
+
+def bound_ms(tape: torch.Tensor, base: torch.Tensor) -> tuple[float, str]:
+    """The least time an H100 could take for the probe on these inputs,
+    and what bounds it: the larger of `words_moved` over the memory rate
+    and the int32 operations over the int32 rate."""
+    bytes_s = words_moved(tape, base) * 4 / BYTES_PER_S
+    ops_s = (ROWS * C * OPS_PER_CELL + C * OPS_PER_COLUMN) / INT32_OPS_PER_S
+    return (max(bytes_s, ops_s) * 1e3,
+            "operations" if ops_s >= bytes_s else "bytes")
 
 
 def check_inputs(tape: torch.Tensor, base: torch.Tensor) -> None:

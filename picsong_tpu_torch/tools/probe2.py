@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from .. import kernels
+from ..entropy.bpc_cuda import BYTES_PER_S, INT32_OPS_PER_S
 from .probe import time_entry_point, wrap32
 
 C = 128           # codeblock chunk
@@ -32,6 +33,10 @@ LANES = 128
 SLABS = 4 * C     # four (8, 128) slabs per column
 ROWS = 32
 AMT_END = SLABS // C * SUBLANES * LANES
+# int32 operations of one output cell (|x|, mod 8, the fetch's index, the
+# add) and of one column (q, s, l and the slab row's address)
+OPS_PER_CELL = 4
+OPS_PER_COLUMN = 4
 
 LAUNCHES = 0
 
@@ -51,6 +56,23 @@ def plain(tape: torch.Tensor, amt: torch.Tensor) -> torch.Tensor:
     rank = torch.remainder(t[:ROWS].abs(), SUBLANES)
     fetched = torch.gather(t[:SUBLANES], 0, rank)                   # (32, C)
     return wrap32(fetched + t[:ROWS])
+
+
+def words_moved(tape: torch.Tensor, amt: torch.Tensor) -> int:
+    """The int32 words the function must read or write: only stage[n][0:32]
+    reaches the output (rank < 8 indexes inside it), so it reads 32 tape
+    words a column and amt, and writes the (32, 128) output."""
+    return C * ROWS + C + ROWS * C
+
+
+def bound_ms(tape: torch.Tensor, amt: torch.Tensor) -> tuple[float, str]:
+    """The least time an H100 could take for the probe, and what bounds
+    it: the larger of `words_moved` over the memory rate and the int32
+    operations over the int32 rate."""
+    bytes_s = words_moved(tape, amt) * 4 / BYTES_PER_S
+    ops_s = (ROWS * C * OPS_PER_CELL + C * OPS_PER_COLUMN) / INT32_OPS_PER_S
+    return (max(bytes_s, ops_s) * 1e3,
+            "operations" if ops_s >= bytes_s else "bytes")
 
 
 def check_inputs(tape: torch.Tensor, amt: torch.Tensor) -> None:

@@ -24,7 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from picsong_tpu.core import spec
+from ..core import spec
 
 _ALPHA, _BETA, _GAMMA, _DELTA = (float(c) for c in (
     spec.I97_ALPHA, spec.I97_BETA, spec.I97_GAMMA, spec.I97_DELTA))

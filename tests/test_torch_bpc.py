@@ -9,10 +9,12 @@ import numpy as np
 import pytest
 import torch
 
-from picsong_tpu.core.lut import LUTParams, neutral_lut
 from picsong_tpu.entropy import bpc_jax, bpc_pallas
 from picsong_tpu.reference import bpc as obpc
+from picsong_tpu_torch.core.lut import LUTParams, neutral_lut
 from picsong_tpu_torch.entropy import bpc, bpc_cuda
+
+from torch_twins import J
 
 PARAMS = LUTParams()
 WL = 2
@@ -59,11 +61,11 @@ def test_plain_encode_matches_pallas_and_xla(seed, maxmag):
 
     want_s, want_n = bpc_pallas.encode_blocks(
         blocks, lut, meta["ref"], meta["sig"], meta["sign"],
-        params=PARAMS, n_planes=n_planes, interpret=True)
+        params=J(PARAMS), n_planes=n_planes, interpret=True)
     assert np.array_equal(sizes.numpy(), np.asarray(want_n))
     assert np.array_equal(streams.numpy(), np.asarray(want_s))
 
-    xla_s, xla_n = bpc_jax.encode(blocks, levels, subbands, lut, PARAMS, WL)
+    xla_s, xla_n = bpc_jax.encode(blocks, levels, subbands, lut, J(PARAMS), WL)
     assert np.array_equal(sizes.numpy(), xla_n)
     assert np.array_equal(streams.numpy(), xla_s)
     if maxmag >= 30000:
@@ -73,7 +75,7 @@ def test_plain_encode_matches_pallas_and_xla(seed, maxmag):
 @pytest.mark.parametrize("seed,maxmag", [(0, 200), (1, 7), (2, 30000)])
 def test_plain_decode_matches_pallas_and_inverts(seed, maxmag):
     blocks, levels, subbands, lut = _case(seed, maxmag)
-    streams, sizes = bpc_jax.encode(blocks, levels, subbands, lut, PARAMS, WL)
+    streams, sizes = bpc_jax.encode(blocks, levels, subbands, lut, J(PARAMS), WL)
     meta = bpc.block_metadata(levels, subbands, PARAMS, WL, 2, 0.0)
     n_planes = bpc.planes_for_streams(streams[:, 0], sizes)
     out = bpc.decode_blocks_plain(
@@ -85,7 +87,7 @@ def test_plain_decode_matches_pallas_and_inverts(seed, maxmag):
     if maxmag < 30000:   # the interpret-mode decoder is the slow half
         want = bpc_pallas.decode_blocks(
             streams, sizes, lut, meta["ref"], meta["sig"], meta["sign"],
-            params=PARAMS, n_planes=n_planes, interpret=True)
+            params=J(PARAMS), n_planes=n_planes, interpret=True)
         assert np.array_equal(out.numpy(), np.asarray(want))
 
 
@@ -106,7 +108,7 @@ def test_plain_encode_matches_oracle_per_block():
         n_planes=bpc.planes_for_magnitude(int(np.max(np.abs(blocks)))))
     for i in range(n):
         want_s, want_n = obpc.encode_codeblock(
-            blocks[i], int(levels[i]), int(subbands[i]), lut, PARAMS, WL)
+            blocks[i], int(levels[i]), int(subbands[i]), lut, J(PARAMS), WL)
         assert int(sizes[i]) == want_n
         assert np.array_equal(streams[i].numpy(), want_s)
 
@@ -118,12 +120,12 @@ def test_block_metadata_matches_jax(wl, cp, k):
     subbands = np.where(levels == wl, 0,
                         rng.integers(0, 3, size=40)).astype(np.int32)
     got = bpc.block_metadata(levels, subbands, PARAMS, wl, cp, k)
-    want = bpc_jax.block_metadata(levels, subbands, PARAMS, wl, cp, k)
+    want = bpc_jax.block_metadata(levels, subbands, J(PARAMS), wl, cp, k)
     assert got.keys() == want.keys()
     for key in want:
         assert np.array_equal(np.asarray(got[key]), np.asarray(want[key]))
     for g, w in zip(bpc._meta_args(levels, subbands, PARAMS, wl, cp, k),
-                    bpc_jax._meta_args(levels, subbands, PARAMS, wl, cp, k)):
+                    bpc_jax._meta_args(levels, subbands, J(PARAMS), wl, cp, k)):
         assert np.array_equal(g, w)
 
 

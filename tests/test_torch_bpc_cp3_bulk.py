@@ -13,11 +13,13 @@ import numpy as np
 import pytest
 import torch
 
-from picsong_tpu.core import spec
-from picsong_tpu.core.lut import LUTParams
 from picsong_tpu.entropy import bpc_jax
 from picsong_tpu.reference import bpc as obpc
+from picsong_tpu_torch.core import spec
+from picsong_tpu_torch.core.lut import LUTParams
 from picsong_tpu_torch.entropy import bpc, bpc_cuda
+
+from torch_twins import J
 
 PARAMS = LUTParams()
 WL = 2
@@ -74,7 +76,7 @@ def test_plain_coder_matches_oracle_and_jax(name):
 
     for i, block in enumerate(blocks):
         want_s, want_n = obpc.encode_codeblock(
-            block, int(levels[i]), int(subbands[i]), lut, PARAMS, WL,
+            block, int(levels[i]), int(subbands[i]), lut, J(PARAMS), WL,
             coding_passes=cp, k_factor=k)
         assert int(sizes[i]) == want_n
         assert np.array_equal(streams[i].numpy(), want_s)
@@ -83,7 +85,7 @@ def test_plain_coder_matches_oracle_and_jax(name):
         n_planes=n_planes)
     assert np.array_equal(sizes.numpy(), np.asarray(mono_n))
     assert np.array_equal(streams.numpy(), np.asarray(mono_s))
-    staged_s, staged_n = bpc_jax.encode(blocks, levels, subbands, lut, PARAMS,
+    staged_s, staged_n = bpc_jax.encode(blocks, levels, subbands, lut, J(PARAMS),
                                         WL, coding_passes=cp, k_factor=k)
     assert np.array_equal(sizes.numpy(), staged_n)
     assert np.array_equal(streams.numpy(), staged_s)
@@ -103,7 +105,7 @@ def test_plain_coder_matches_oracle_and_jax(name):
                                  n_planes=n_planes)
     assert np.array_equal(out.numpy(), blocks)
     staged = bpc_jax.decode(streams.numpy(), sizes.numpy(), levels, subbands,
-                            lut, PARAMS, WL, coding_passes=cp, k_factor=k)
+                            lut, J(PARAMS), WL, coding_passes=cp, k_factor=k)
     assert np.array_equal(out.numpy(), staged)
 
 

@@ -11,15 +11,17 @@ import os
 import numpy as np
 import pytest
 
-from picsong_tpu.core.header import CodecConfig
-from picsong_tpu.core.image_io import (append_raw_frame, read_pgm,
-                                       read_raw_frame, sample_dtype,
-                                       write_pgm)
-from picsong_tpu.core.lut import LUTParams, load_luts, neutral_lut
 from picsong_tpu.engine.pipeline import TPUCodec
 from picsong_tpu.reference import codec as oracle
+from picsong_tpu_torch.core.header import CodecConfig
+from picsong_tpu_torch.core.image_io import (append_raw_frame, read_pgm,
+                                             read_raw_frame, sample_dtype,
+                                             write_pgm)
+from picsong_tpu_torch.core.lut import LUTParams, load_luts, neutral_lut
 from picsong_tpu_torch.engine import cli
 from picsong_tpu_torch.engine.pipeline import TorchCodec
+
+from torch_twins import J
 
 PARAMS = LUTParams()
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -53,11 +55,11 @@ def test_torch_codec_matches_tpu_codec_and_oracle(h, w, wl, luts):
     lut_list, params = luts(wl)
     codec = TorchCodec(cfg, lut_list, params, device="cpu")
     got = codec.encode(img)
-    want = TPUCodec(cfg, lut_list, params).encode(img)
+    want = TPUCodec(J(cfg), lut_list, J(params)).encode(img)
     assert len(got) == len(want) == 1
     assert np.array_equal(got[0], want[0])
-    assert np.array_equal(got[0], oracle.encode_image(img, cfg, lut_list,
-                                                      params)[0])
+    assert np.array_equal(got[0], oracle.encode_image(img, J(cfg), lut_list,
+                                                      J(params))[0])
     out = codec.decode(got)
     assert out.dtype == np.uint8
     assert np.array_equal(out, img)
@@ -70,8 +72,8 @@ def test_torch_codec_signed_samples_round_trip():
     luts, params = _neutral(2)
     codec = TorchCodec(cfg, luts, params, device="cpu")
     got = codec.encode(img)
-    assert np.array_equal(got[0], oracle.encode_image(img, cfg, luts,
-                                                      params)[0])
+    assert np.array_equal(got[0], oracle.encode_image(img, J(cfg), luts,
+                                                      J(params))[0])
     assert np.array_equal(codec.decode(got), img)
 
 
@@ -96,10 +98,10 @@ def test_torch_codec_rejects_unported_configs(cfg_kw, item):
         else img
     codec = TorchCodec(cfg, luts, params, device="cpu")
     got = codec.encode(pixels)
-    want = oracle.encode_image(pixels, cfg, luts, params)
+    want = oracle.encode_image(pixels, J(cfg), luts, J(params))
     assert all(np.array_equal(g, w) for g, w in zip(got, want, strict=True))
     out = codec.decode(got)
-    expect = (oracle.decode_image(want, cfg, luts, params) if cfg.is_lossy
+    expect = (oracle.decode_image(want, J(cfg), luts, J(params)) if cfg.is_lossy
               else pixels)
     assert np.array_equal(np.asarray(out), np.asarray(expect)), item
 
@@ -125,7 +127,7 @@ def test_cli_round_trip(tmp_path, lut_folder):
     assert np.array_equal(read_pgm(dec), img)
     cfg = CodecConfig(width=128, height=128, wavelet_levels=3)
     luts, params = cli._load_luts(lut_folder, 3, 2, 0.0)
-    want = oracle.encode_image(img, cfg, luts, params)[0]
+    want = oracle.encode_image(img, J(cfg), luts, J(params))[0]
     assert open(enc, "rb").read() == want.tobytes()
 
 
@@ -165,14 +167,14 @@ def test_cli_unported_flags_exit_2(tmp_path, capsys, flags):
                       is_rgb=rgb, components=3 if rgb else 1)
     luts, params = cli._load_luts("", 1, cp, k, lossy)
     if lossy:
-        want = oracle.encode_image(planes[0], cfg, luts, params)
+        want = oracle.encode_image(planes[0], J(cfg), luts, J(params))
         assert open(enc, "rb").read() == want[0].tobytes()
-        assert np.array_equal(back[0], oracle.decode_image(want, cfg, luts,
-                                                           params))
+        assert np.array_equal(back[0], oracle.decode_image(want, J(cfg), luts,
+                                                           J(params)))
     else:
         assert all(np.array_equal(b, p) for b, p in zip(back, planes))
         if not rgb:
-            want = oracle.encode_image(planes[0], cfg, luts, params)[0]
+            want = oracle.encode_image(planes[0], J(cfg), luts, J(params))[0]
             assert open(enc, "rb").read() == want.tobytes()
 
 
@@ -183,7 +185,7 @@ def test_cli_decode_of_unported_stream_exits_2(tmp_path):
     cfg = CodecConfig(width=64, height=64, wavelet_levels=1, coding_passes=3)
     enc = tmp_path / "cp3.enc"
     enc.write_bytes(oracle.encode_image(
-        img, cfg, [neutral_lut(PARAMS, 1, 3)], PARAMS)[0].tobytes())
+        img, J(cfg), [neutral_lut(J(PARAMS), 1, 3)], J(PARAMS))[0].tobytes())
     rc = cli.main(["-cd", "1", "-i", str(enc), "-o", str(tmp_path / "d.pgm"),
                    "--device", "cpu"])
     assert rc == 0

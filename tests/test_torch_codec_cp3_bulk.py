@@ -9,11 +9,13 @@ plain PyTorch version.
 import numpy as np
 import pytest
 
-from picsong_tpu.core.header import CodecConfig
-from picsong_tpu.core.lut import LUTParams, neutral_lut
 from picsong_tpu.engine.pipeline import TPUCodec
 from picsong_tpu.reference import codec as oracle
+from picsong_tpu_torch.core.header import CodecConfig
+from picsong_tpu_torch.core.lut import LUTParams, neutral_lut
 from picsong_tpu_torch.engine.pipeline import TorchCodec
+
+from torch_twins import J
 
 PARAMS = LUTParams()
 
@@ -40,9 +42,9 @@ def test_lossless_matches_oracle_and_tpu_codec(mode, wl):
     luts = _luts(cfg)
     codec = TorchCodec(cfg, luts, PARAMS, device="cpu")
     got = codec.encode(img)
-    assert np.array_equal(got[0], oracle.encode_image(img, cfg, luts,
-                                                      PARAMS)[0])
-    assert np.array_equal(got[0], TPUCodec(cfg, luts, PARAMS).encode(img)[0])
+    assert np.array_equal(got[0], oracle.encode_image(img, J(cfg), luts,
+                                                      J(PARAMS))[0])
+    assert np.array_equal(got[0], TPUCodec(J(cfg), luts, J(PARAMS)).encode(img)[0])
     assert np.array_equal(codec.decode(got), img)
 
 
@@ -53,7 +55,7 @@ def test_lossy_k5_matches_oracle():
     luts = _luts(cfg)
     codec = TorchCodec(cfg, luts, PARAMS, device="cpu")
     got = codec.encode(img)
-    want = oracle.encode_image(img, cfg, luts, PARAMS)
+    want = oracle.encode_image(img, J(cfg), luts, J(PARAMS))
     assert np.array_equal(got[0], want[0])
     assert np.array_equal(codec.decode(got),
-                          oracle.decode_image(want, cfg, luts, PARAMS))
+                          oracle.decode_image(want, J(cfg), luts, J(PARAMS)))

@@ -12,12 +12,15 @@ import numpy as np
 import pytest
 import torch
 
-from picsong_tpu.core.header import CodecConfig
-from picsong_tpu.core.lut import LUTParams, neutral_lut
+from picsong_tpu.assembly import pack as host_pack
 from picsong_tpu.reference import codec as oracle
+from picsong_tpu_torch.assembly import pack
+from picsong_tpu_torch.core.header import CodecConfig, pack_header
+from picsong_tpu_torch.core.lut import LUTParams, neutral_lut
 from picsong_tpu_torch.engine.pipeline import TorchCodec
 from picsong_tpu_torch.entropy import bpc, bpc_cuda
 from picsong_tpu_torch.tools import probe, probe2
+from torch_twins import J
 
 pytestmark = pytest.mark.cuda
 
@@ -101,6 +104,68 @@ def test_cp3_and_bulk_kernels_match_plain(cuda, cp, k, maxmag):
     assert int(sizes[5]) == 4096 and int(sizes[3]) == 1
 
 
+def _edge_blocks():
+    """Edge codeblocks: empty; MSB 0; MSB 15 with 16-bit magnitudes; a raw
+    fallback; and the first 3739 and 3740 cells of one seeded block with
+    magnitudes below 2^15, whose cp=2 streams end with the slot counter at
+    exactly 4094 (size 4095) and 4095 (size 4096, the raw copy)."""
+    rng = np.random.default_rng(21)
+    order = rng.permutation(4096)
+    vals = rng.integers(-32767, 32768, size=4096)
+    vals[vals == 0] = 1
+    vals[order[0]] = 32767
+    blocks = np.zeros((8, 4096), dtype=np.int32)
+    blocks[1, ::7] = rng.integers(-1, 2, size=blocks[1, ::7].shape)
+    blocks[2, ::97] = 32768
+    blocks[2, 5] = -65535
+    blocks[3] = rng.integers(-65535, 65536, size=4096)
+    for i, m in ((4, 3739), (5, 3740)):
+        blocks[i, order[:m]] = vals[order[:m]]
+    blocks[6] = 1
+    blocks[7, 4095] = -32767
+    return torch.from_numpy(blocks.reshape(8, 64, 64))
+
+
+@pytest.mark.parametrize("cp,k", [(2, 0.0), (3, 0.0), (2, 5.0)])
+def test_edge_blocks_match_plain(cuda, cp, k):
+    blocks = _edge_blocks()
+    levels = np.zeros(8, dtype=np.int32)
+    subbands = np.zeros(8, dtype=np.int32)
+    groups = PARAMS.n_bitplane_files if k > 0 else 1
+    lut = neutral_lut(PARAMS, WL, cp, groups)
+    meta = bpc._meta_args(levels, subbands, PARAMS, WL, cp, k)
+    args = [torch.from_numpy(np.asarray(a)) for a in (lut, *meta)]
+    kw = dict(params=PARAMS, wavelet_levels=WL, coding_passes=cp,
+              has_k=k > 0)
+    sizes = _check_kernels(cuda, blocks, args, kw, 16)
+    assert int(sizes[0]) == 1 and int(sizes[3]) == 4096
+    if (cp, k) == (2, 0.0):
+        assert (int(sizes[4]), int(sizes[5])) == (4095, 4096)
+
+
+def test_device_pack_matches_host_pack(cuda):
+    """The codestream packed and unpacked on the card equals the host
+    pack's, on the kernels' streams of random and edge blocks."""
+    blocks, args, kw, n_planes = _batch(3, 200)
+    blocks = torch.cat([blocks, _edge_blocks()])
+    args = [args[0], *(torch.cat([a, a[:8]]) for a in args[1:])]
+    dargs = [a.to(cuda) for a in args]
+    streams, sizes = bpc_cuda.encode_blocks(blocks.to(cuda), *dargs, **kw,
+                                            n_planes=16)
+    hdr = pack_header(CodecConfig(width=64, height=64))
+    got = pack.pack_streams(streams, sizes, hdr).cpu().numpy().view(np.uint16)
+    want = host_pack.pack_streams(streams.cpu().numpy(),
+                                  sizes.cpu().numpy(), hdr)
+    assert np.array_equal(got, want)
+    n = blocks.shape[0]
+    payload = int(pack.block_fields(got, n)[1].sum()) - n
+    s_back, z_back = pack.unpack_streams(
+        torch.from_numpy(got.view(np.int16)).to(cuda), n, payload)
+    want_s, want_z = host_pack.unpack_streams(want, n)
+    assert np.array_equal(s_back.cpu().numpy(), want_s)
+    assert np.array_equal(z_back.cpu().numpy(), want_z)
+
+
 def test_torch_codec_on_cuda_matches_oracle(cuda):
     rng = np.random.default_rng(1)
     y, x = np.mgrid[0:128, 0:128]
@@ -110,8 +175,12 @@ def test_torch_codec_on_cuda_matches_oracle(cuda):
     luts = [neutral_lut(PARAMS, 2, 2)]
     codec = TorchCodec(cfg, luts, PARAMS, cuda)
     got = codec.encode(img)
-    assert np.array_equal(got[0], oracle.encode_image(img, cfg, luts,
-                                                      PARAMS)[0])
+    # the download is the packed codestream, not the stream buffers
+    sizes = pack.block_fields(got[0], codec.ncb)[1]
+    assert got[0].size == pack.stream_length(codec.ncb,
+                                             int(sizes.sum()) - codec.ncb)
+    assert np.array_equal(got[0], oracle.encode_image(img, J(cfg), luts,
+                                                      J(PARAMS))[0])
     assert np.array_equal(codec.decode(got), img)
 
 
@@ -162,7 +231,7 @@ def test_lossy_512_on_cuda_matches_oracle(cuda):
     luts = [neutral_lut(PARAMS, 3, 2)]
     codec = TorchCodec(cfg, luts, PARAMS, cuda)
     got = codec.encode(img)
-    want = oracle.encode_image(img, cfg, luts, PARAMS)
+    want = oracle.encode_image(img, J(cfg), luts, J(PARAMS))
     assert np.array_equal(got[0], want[0])
     assert np.array_equal(codec.decode(got),
-                          oracle.decode_image(want, cfg, luts, PARAMS))
+                          oracle.decode_image(want, J(cfg), luts, J(PARAMS)))

@@ -1,41 +1,46 @@
-"""The port stands without JAX, and it has no hidden fallbacks: the kernel
-loader raises instead of degrading, and the BPC dispatch refuses devices
-it has no implementation for."""
+"""The port stands without JAX and without the JAX package, and it has no
+hidden fallbacks: the kernel loader raises instead of degrading, and the
+BPC dispatch refuses devices it has no implementation for."""
 
 import os
+import re
 import subprocess
 import sys
 
 import pytest
 import torch
 
-from picsong_tpu.core.lut import LUTParams, neutral_lut
 from picsong_tpu_torch import kernels
+from picsong_tpu_torch.core.lut import LUTParams, neutral_lut
 from picsong_tpu_torch.entropy import bpc_cuda
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "picsong_tpu_torch")
 
 
+# `import jax...` / `from jax...`, and `import picsong_tpu...` / `from
+# picsong_tpu...` other than the port's own package
+_FOREIGN = re.compile(r"^\s*(from|import)\s+(jax|picsong_tpu)([.\s,]|$)")
+
+
 def test_no_jax_import_in_package():
-    offenders = []
+    paths = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, files in os.walk(PKG):
-        for name in files:
-            if not name.endswith(".py"):
-                continue
-            path = os.path.join(root, name)
-            for line in open(path):
-                s = line.strip()
-                if s.startswith(("import jax", "from jax")):
-                    offenders.append(f"{path}: {s}")
+        paths += [os.path.join(root, n) for n in files if n.endswith(".py")]
+    offenders = [f"{path}: {line.strip()}" for path in paths
+                 for line in open(path) if _FOREIGN.match(line)]
     assert offenders == []
+    assert _FOREIGN.match("from picsong_tpu.core import spec")
+    assert _FOREIGN.match("import picsong_tpu")
+    assert not _FOREIGN.match("from picsong_tpu_torch.core import spec")
 
 
 _NO_JAX_ROUND_TRIP = r"""
 import sys
 sys.modules["jax"] = None          # any `import jax` now raises ImportError
+sys.modules["picsong_tpu"] = None  # and so does the JAX package
 import numpy as np
-from picsong_tpu.core.image_io import read_pgm, write_pgm
+from picsong_tpu_torch.core.image_io import read_pgm, write_pgm
 from picsong_tpu_torch.engine import cli
 d = sys.argv[1]
 y, x = np.mgrid[0:64, 0:64]
@@ -63,7 +68,7 @@ assert cli.main(["-cd", "1", "-i", d + "/r.enc", "-o", d + "/r.raw",
                  "--device", "cpu"]) == 0
 assert open(d + "/r.raw", "rb").read() == open(d + "/rgb.raw", "rb").read()
 loaded = sorted(m for m in sys.modules
-                if (m == "jax" or m.startswith("jax.")) and sys.modules[m])
+                if m.split(".")[0] in ("jax", "picsong_tpu") and sys.modules[m])
 assert loaded == [], loaded
 print("NO-JAX-OK")
 """

@@ -18,15 +18,17 @@ import numpy as np
 import pytest
 import torch
 
-from picsong_tpu.core.header import CodecConfig
-from picsong_tpu.core.image_io import read_pgm, write_pgm
-from picsong_tpu.core.lut import LUTParams, load_luts, neutral_lut
 from picsong_tpu.engine.pipeline import TPUCodec
 from picsong_tpu.reference import codec as oracle
 from picsong_tpu.reference import dwt as odwt
+from picsong_tpu_torch.core.header import CodecConfig
+from picsong_tpu_torch.core.image_io import read_pgm, write_pgm
+from picsong_tpu_torch.core.lut import LUTParams, load_luts, neutral_lut
 from picsong_tpu_torch.engine import cli
 from picsong_tpu_torch.engine.pipeline import TorchCodec
 from picsong_tpu_torch.transform import dwt as tdwt
+
+from torch_twins import J
 
 PARAMS = LUTParams()
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -90,18 +92,18 @@ def test_lossy_codestream_and_decode_match_oracle(lut_kind):
     img, cfg, luts, params = _lossy_case(lut_kind)
     codec = TorchCodec(cfg, luts, params, device="cpu")
     got = codec.encode(img)
-    want = oracle.encode_image(img, cfg, luts, params)
+    want = oracle.encode_image(img, J(cfg), luts, J(params))
     assert len(got) == 1 and np.array_equal(got[0], want[0])
     out = codec.decode(got)
     assert out.dtype == np.uint8
-    assert np.array_equal(out, oracle.decode_image(want, cfg, luts, params))
+    assert np.array_equal(out, oracle.decode_image(want, J(cfg), luts, J(params)))
     assert psnr(out, img) > 40.0
 
 
 def test_lossy_against_tpu_codec_within_tolerance():
     img, cfg, luts, params = _lossy_case("neutral")
     tc = TorchCodec(cfg, luts, params, device="cpu")
-    jc = TPUCodec(cfg, luts, params)
+    jc = TPUCodec(J(cfg), luts, J(params))
 
     plane = torch.from_numpy(np.asarray(img))
     q_torch = tc._dwt_tile_impl(tc._prep_gray_impl(plane))[0].numpy()
@@ -112,7 +114,7 @@ def test_lossy_against_tpu_codec_within_tolerance():
 
     torch_streams, jax_streams = tc.encode(img), jc.encode(img)
     oracle_psnr = psnr(oracle.decode_image(
-        oracle.encode_image(img, cfg, luts, params), cfg, luts, params), img)
+        oracle.encode_image(img, J(cfg), luts, J(params)), J(cfg), luts, J(params)), img)
     for decoded in (tc.decode(jax_streams), jc.decode(torch_streams),
                     tc.decode(torch_streams)):
         assert psnr(decoded, img) >= oracle_psnr - 0.05
@@ -131,7 +133,7 @@ def test_cli_lossy_round_trip_matches_oracle(tmp_path):
     cfg = CodecConfig(width=128, height=128, wavelet_levels=3, is_lossy=True,
                       qs=0.5)
     luts, params = cli._load_luts("trained", 3, 2, 0.0, lossy=True)
-    want = oracle.encode_image(img, cfg, luts, params)
+    want = oracle.encode_image(img, J(cfg), luts, J(params))
     assert open(enc, "rb").read() == want[0].tobytes()
     assert np.array_equal(read_pgm(dec),
-                          oracle.decode_image(want, cfg, luts, params))
+                          oracle.decode_image(want, J(cfg), luts, J(params)))

@@ -129,6 +129,42 @@ def test_probe_wrappers_refuse_inputs_outside_the_domain():
         probe2.run(tape2.reshape(128, 32, 128), amt)
 
 
+def _read_tape_words(module, tape, arg):
+    """Mask of the tape words the probe's output depends on, from the
+    definitions in the kernels' headers."""
+    mask = np.zeros(tape.shape, dtype=bool)
+    n = np.arange(128)
+    if module is probe:
+        mask[:32, :128] = True
+        v = tape[0, :128].astype(np.int64)
+        rank = (64 * ((v >> 1) + (v > 100))) & 127
+        mask[n, arg // 128 * 128 + rank] = True
+    else:
+        a = arg.astype(np.int64)
+        rows = (-((a % 1024) // 128)) % 8
+        for j in range(32):
+            mask[4 * n + a // 1024, rows, (j - a % 128) % 128] = True
+    return mask
+
+
+@pytest.mark.parametrize("module", [probe, probe2])
+@pytest.mark.parametrize("case", ["probe_inputs", "edges"])
+def test_probe_bound_charges_the_words_the_output_reads(module, case):
+    """`words_moved` counts the tape words the output depends on (words
+    outside them change nothing), the second input and the output."""
+    tape, arg = module.inputs(0) if case == "probe_inputs" else \
+        module.edge_inputs()
+    mask = _read_tape_words(module, tape, arg)
+    t, a = torch.from_numpy(tape), torch.from_numpy(arg)
+    assert module.words_moved(t, a) == mask.sum() + arg.size + 32 * 128
+    noise = np.random.default_rng(5).integers(
+        -2**31, 2**31, size=tape.shape, dtype=np.int64).astype(np.int32)
+    other = torch.from_numpy(np.where(mask, tape, noise))
+    assert torch.equal(module.plain(other, a), module.plain(t, a))
+    bound, by = module.bound_ms(t, a)
+    assert bound > 0 and by == ("operations" if module is probe else "bytes")
+
+
 @pytest.mark.parametrize("module", [probe, probe2])
 def test_probe_entry_points_run_on_cpu(module, capsys):
     before = module.LAUNCHES

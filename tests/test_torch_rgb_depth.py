@@ -15,15 +15,17 @@ by PSNR on the lossy paths.
 import numpy as np
 import pytest
 
-from picsong_tpu.core import spec
-from picsong_tpu.core.header import CodecConfig
-from picsong_tpu.core.image_io import (append_raw_frame, read_raw_frame,
-                                       sample_dtype)
-from picsong_tpu.core.lut import LUTParams, neutral_lut
 from picsong_tpu.engine.pipeline import TPUCodec
 from picsong_tpu.reference import codec as oracle
+from picsong_tpu_torch.core import spec
+from picsong_tpu_torch.core.header import CodecConfig
+from picsong_tpu_torch.core.image_io import (append_raw_frame, read_raw_frame,
+                                             sample_dtype)
+from picsong_tpu_torch.core.lut import LUTParams, neutral_lut
 from picsong_tpu_torch.engine import cli
 from picsong_tpu_torch.engine.pipeline import TorchCodec
+
+from torch_twins import J
 
 PARAMS = LUTParams()
 
@@ -50,12 +52,12 @@ def _check_lossless(cfg, pixels, with_tpu=True):
     luts = _luts(cfg)
     codec = TorchCodec(cfg, luts, PARAMS, device="cpu")
     got = codec.encode(pixels)
-    want = oracle.encode_image(pixels, cfg, luts, PARAMS)
+    want = oracle.encode_image(pixels, J(cfg), luts, J(PARAMS))
     assert len(got) == len(want)
     for g, w in zip(got, want):
         assert np.array_equal(g, w)
     if with_tpu:
-        for g, j in zip(got, TPUCodec(cfg, luts, PARAMS).encode(pixels)):
+        for g, j in zip(got, TPUCodec(J(cfg), luts, J(PARAMS)).encode(pixels)):
             assert np.array_equal(g, j)
     return codec.decode(got)
 
@@ -105,15 +107,15 @@ def test_ict_lossy_matches_oracle():
     luts = _luts(cfg)
     codec = TorchCodec(cfg, luts, PARAMS, device="cpu")
     got = codec.encode(planes)
-    want = oracle.encode_image(planes, cfg, luts, PARAMS)
+    want = oracle.encode_image(planes, J(cfg), luts, J(PARAMS))
     for g, w in zip(got, want):
         assert np.array_equal(g, w)
     out = codec.decode(got)
-    for o, w, p in zip(out, oracle.decode_image(want, cfg, luts, PARAMS),
+    for o, w, p in zip(out, oracle.decode_image(want, J(cfg), luts, J(PARAMS)),
                        planes):
         assert np.array_equal(o, w)
         assert psnr(o, p) > 30.0
-    tpu = TPUCodec(cfg, luts, PARAMS)
+    tpu = TPUCodec(J(cfg), luts, J(PARAMS))
     for o, p in zip(tpu.decode(got), planes):
         assert psnr(o, p) > 30.0
 
@@ -145,11 +147,11 @@ def test_12bit_lossy_matches_oracle():
     luts = _luts(cfg)
     codec = TorchCodec(cfg, luts, PARAMS, device="cpu")
     got = codec.encode(img)
-    want = oracle.encode_image(img, cfg, luts, PARAMS)
+    want = oracle.encode_image(img, J(cfg), luts, J(PARAMS))
     assert np.array_equal(got[0], want[0])
     out = codec.decode(got)
     assert out.dtype == np.uint16
-    assert np.array_equal(out, oracle.decode_image(want, cfg, luts, PARAMS))
+    assert np.array_equal(out, oracle.decode_image(want, J(cfg), luts, J(PARAMS)))
     assert psnr(out, img, 4095.0) > 40.0
 
 
@@ -167,15 +169,15 @@ def test_16bit_raw_fallback_boundary_matches_oracle_and_tpu_codec():
     luts = _luts(cfg)
     codec = TorchCodec(cfg, luts, PARAMS, device="cpu")
     got = codec.encode(img)
-    want = oracle.encode_image(img, cfg, luts, PARAMS)
-    tpu = TPUCodec(cfg, luts, PARAMS)
+    want = oracle.encode_image(img, J(cfg), luts, J(PARAMS))
+    tpu = TPUCodec(J(cfg), luts, J(PARAMS))
     assert np.array_equal(got[0], want[0])
     assert np.array_equal(got[0], tpu.encode(img)[0])
     ncb = 1
     sizes = got[0][10:10 + 2 * ncb:2]
     assert int(sizes[0]) == 4096                  # the raw copy was taken
     out = codec.decode(got)
-    assert np.array_equal(out, oracle.decode_image(want, cfg, luts, PARAMS))
+    assert np.array_equal(out, oracle.decode_image(want, J(cfg), luts, J(PARAMS)))
     assert np.array_equal(out, tpu.decode(got))
     exact = np.array_equal(out, img)
     print(f"16-bit raw-copy round trip exact: {exact} "
@@ -203,9 +205,9 @@ def test_cli_planar_rgb_raw_round_trip(tmp_path, lossy):
     cfg = CodecConfig(width=96, height=64, wavelet_levels=2, is_rgb=True,
                       is_lossy=lossy)
     luts, params = cli._load_luts("trained", 2, 2, 0.0, lossy)
-    want = oracle.encode_image(planes, cfg, luts, params)
+    want = oracle.encode_image(planes, J(cfg), luts, J(params))
     assert open(enc, "rb").read() == b"".join(w.tobytes() for w in want)
-    for got, ref, p in zip(back, oracle.decode_image(want, cfg, luts, params),
+    for got, ref, p in zip(back, oracle.decode_image(want, J(cfg), luts, J(params)),
                            planes):
         assert np.array_equal(got, ref)
         if not lossy:
@@ -227,5 +229,5 @@ def test_cli_bigendian_16bit_raw_round_trip(tmp_path):
     assert open(dec, "rb").read() == open(src, "rb").read()
     cfg = CodecConfig(width=48, height=32, wavelet_levels=1, bit_depth=16,
                       bps=16, endianess=1)
-    want = oracle.encode_image(img, cfg, [neutral_lut(PARAMS, 1, 2)], PARAMS)
+    want = oracle.encode_image(img, J(cfg), [neutral_lut(J(PARAMS), 1, 2)], J(PARAMS))
     assert open(enc, "rb").read() == want[0].tobytes()
