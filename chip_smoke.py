@@ -30,6 +30,14 @@ or of the JAX package `picsong_tpu` is imported:
 - 8192x8192 wl=5 (16384 codeblocks, a size that fills the card) in all
   three modes: an encode -> decode round trip of the kernels equal to
   the input blocks, 64 picked blocks equal to the plain coder, times;
+- video through the CLI (-video 1, `video_phase`): 1920x1080 gray, 100
+  frames, batch 8, with the neutral and the trained video LUTs, and
+  4096x2048 planar RGB, 16 frames, batch 4, all lossless wl=5: round
+  trips bit-exact, every frame's codestream equal to TorchCodec.encode
+  of the frame, one BPC launch per component and batch, the kernels on
+  64 picked blocks of a batch equal to the plain coder, the kernels'
+  time at the batch's shape, the engine's stage times and, from
+  torch.profiler, the card's busy time over one 1080p encode;
 on each path after the main one it also holds the BPC kernels equal to
 their plain versions on every component's codeblocks, at the path's
 n_planes and with the component's LUT; on the lossy ones it holds the
@@ -37,10 +45,16 @@ card's quantized codeblocks, inverse DWT and decoded samples equal to a
 CPU TorchCodec's, and the CLI's decoded file equal to those samples. Then
 it times the device halves and CLI round trips of the paths (the two
 cli.main calls alone) and each kernel variant against its plain version.
-Every comparison is exact except the lossy PSNR floors, which are stated
-where they are checked. The main path's layers include the device pack
-and unpack of the codestream (assembly/pack.py): only the packed bytes
-cross PCIe.
+The probes' times stand beside the launch floor: a one-element torch op
+timed the same way. Every comparison is exact except the lossy PSNR
+floors, which are stated where they are checked. The main path's layers
+include the device pack and unpack of the codestream (assembly/pack.py):
+only the packed bytes cross PCIe. The kernels line's launches are the
+cp2 kernels' on the 2048^2 CLI round trips (the main path) and each
+other mode's on its own 2048^2 round trips; the cp2 entries add, under
+"video", each video workload's own launches (one CLI encode or decode,
+counts reset just before it) beside the kernels' time and bound at that
+workload's batch shape.
 
 Exits non-zero, printing no result, when there is no CUDA device or any
 check fails. Otherwise its last three lines are a JSON object with each
@@ -90,6 +104,234 @@ def psnr(a, b, peak: float = 255.0) -> float:
     err = np.asarray(a, np.float64) - np.asarray(b, np.float64)
     return float(10 * np.log10(peak ** 2 / max(float(np.mean(err * err)),
                                                  1e-12)))
+
+
+# the video workloads: (name, width, height, frames, batch, RGB, LUT
+# folders); the first folder's run is also timed through the engine's API
+VIDEO = (
+    # the README's video example and BASELINE config 4
+    ("1080p gray", 1920, 1080, 100, 8, False,
+     ("neutral", "trained_video_lossless")),
+    # the reference's video workload (4096x2048 RGB), at 16 of its frames
+    ("4096x2048 RGB", 4096, 2048, 16, 4, True, ("trained_video_lossless",)),
+)
+
+
+def video_phase(dev, tag: str, err: dict) -> dict:
+    """Each VIDEO workload, lossless wl=LEVELS, through `cli.main -video 1`:
+    inputs from `goldens.make_frame` (a seed, integer arithmetic); for
+    each LUT folder, one BPC encode and one decode launch per component
+    and batch (counts reset before each CLI call and read after it; the
+    first folder's counts are the workload's launches); the decoded file
+    equal to the input; every
+    frame's codestream equal to `TorchCodec.encode` of that frame. With
+    the first folder: the kernels on the first batch's codeblocks
+    (component 0, B * ncb blocks) held to their plain versions on
+    BIG_PICKS blocks spread over the batch (max errors into `err`), their
+    time per launch over KERNEL_BATCH back-to-back launches and their
+    bound; two encode -> decode runs through the engine's API with its
+    stage times; on the first workload, one encode under torch.profiler
+    for the card's busy time. Returns the numbers by workload."""
+    import numpy as np
+    import torch
+
+    from picsong_tpu_torch.core.header import unpack_header
+    from picsong_tpu_torch.core.image_io import (mirror_pad, read_codestream,
+                                                 read_header_shorts,
+                                                 read_raw_frame, read_sizes)
+    from picsong_tpu_torch.engine import cli, video
+    from picsong_tpu_torch.engine.batch import BatchCodec
+    from picsong_tpu_torch.engine.pipeline import TorchCodec
+    from picsong_tpu_torch.entropy import bpc, bpc_cuda
+    from picsong_tpu_torch.tools import goldens
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+
+    def read(path):
+        with open(path, "rb") as f:
+            return f.read()
+
+    def kernel_ms(fn, iters=5):
+        fn()
+        torch.cuda.synchronize()
+        out = []
+        for _ in range(iters):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            for _ in range(KERNEL_BATCH):
+                fn()
+            b.record()
+            torch.cuda.synchronize()
+            out.append(a.elapsed_time(b) / KERNEL_BATCH)
+        return statistics.median(out)
+
+    def busy_ms(prof):
+        """The union of the device's kernel and copy spans, in ms, and
+        their count (0 when the profiler saw no device activity)."""
+        spans = sorted((e.time_range.start, e.time_range.end)
+                       for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA)
+        total, end = 0.0, float("-inf")
+        for lo, hi in spans:
+            total += max(0.0, hi - max(lo, end))
+            end = max(end, hi)
+        return total / 1e3, len(spans)
+
+    def stats_line(what, st, n):
+        print(f"{tag} {what}: {st.frames} frames in {st.wall_s:.4f} s = "
+              f"{n / st.wall_s:.2f} frames/s (compute {st.compute_s:.4f} s = "
+              f"{n / st.compute_s:.2f} frames/s; download {st.download_s:.4f}"
+              f" s, reader stall {st.reader_stall_s:.4f} s, writer stall "
+              f"{st.writer_stall_s:.4f} s, writer busy {st.writer_busy_s:.4f}"
+              f" s; {st.batches} batches of {st.batch}, n_planes "
+              f"{st.n_planes})")
+
+    out = {}
+    for name, w, h, n, batch, rgb, folders in VIDEO:
+        n_comp = 3 if rgb else 1
+        n_batches = -(-n // batch)
+        res = out[name] = {"frames": n, "batch": batch,
+                           "batches": n_batches}
+        tmp = tempfile.TemporaryDirectory()
+        raw = os.path.join(tmp.name, "in.raw")
+        with open(raw, "wb") as f:
+            for i in range(n):
+                for c in range(n_comp):
+                    f.write(goldens.make_frame(h, w, i, 5 + 7 * c).tobytes())
+        geo = ["-xSize", str(w), "-ySize", str(h), "-isRGB", str(int(rgb))]
+        for folder in folders:
+            lut = (folder if folder == "neutral"
+                   else os.path.join(repo, "luts", folder))
+            label = f"video {name} {folder}"
+            enc = os.path.join(tmp.name, f"{folder}.enc")
+            dec = os.path.join(tmp.name, f"{folder}.raw")
+            run = {}
+            for d, argv in (("encode", ["-i", raw, "-o", enc, *geo, "-wl",
+                                        str(LEVELS), "-frames", str(n)]),
+                            ("decode", ["-i", enc, "-o", dec])):
+                bpc_cuda.reset_launches()
+                t = time.perf_counter()
+                _require(cli.main(["-cd", "0" if d == "encode" else "1",
+                                   *argv, "-video", "1", "-numberOfStreams",
+                                   str(batch), "-LUTFolder", lut,
+                                   "--device", str(dev)]) == 0,
+                         f"{label}: CLI {d}")
+                run[d] = (time.perf_counter() - t) * 1e3
+                counts = (bpc_cuda.ENCODE_LAUNCHES if d == "encode"
+                          else bpc_cuda.DECODE_LAUNCHES)
+                want = dict.fromkeys(counts, 0)
+                want["cp2"] = n_batches * n_comp
+                _require(counts == want, f"{label}: {d} launches {counts}, "
+                         "one per component and batch")
+                res.setdefault("launches", {}).setdefault(d, counts["cp2"])
+            _require(read(dec) == read(raw),
+                     f"{label}: CLI round trip bit-exact")
+            cfg = unpack_header(read_header_shorts(enc))
+            luts, params = cli._load_luts(lut, LEVELS, 2, 0.0)
+            codec = TorchCodec(cfg, luts, params, dev)
+            sizes = read_sizes(enc)
+            offsets = np.concatenate([[0], np.cumsum(sizes)])
+            for i in range(n):
+                planes = [read_raw_frame(raw, w, h, i * n_comp + c)
+                          for c in range(n_comp)]
+                want = codec.encode(planes if rgb else planes[0])
+                for c in range(n_comp):
+                    k = i * n_comp + c
+                    _require(np.array_equal(read_codestream(
+                        enc, int(offsets[k]), int(sizes[k])), want[c]),
+                        f"{label}: frame {i} component {c} codestream == "
+                        "TorchCodec.encode of the frame")
+            print(f"{tag} {label}: {n} frames, batch {batch}, CLI encode "
+                  f"{run['encode']:.4f} ms, decode {run['decode']:.4f} ms "
+                  f"({os.path.getsize(enc)} B); round trip bit-exact; every "
+                  "frame's codestream == TorchCodec.encode of the frame; "
+                  f"BPC launches {n_batches * n_comp} per direction "
+                  f"({n_comp} per batch)")
+            res[folder] = {"cli_encode_ms": run["encode"],
+                           "cli_decode_ms": run["decode"],
+                           "bytes": os.path.getsize(enc)}
+            if folder != folders[0]:
+                continue
+            # the kernels at the video batch's shape: component 0 of the
+            # first batch, B * ncb codeblocks
+            bc = BatchCodec(cfg, luts, params, batch, dev)
+            first = np.stack([np.stack([mirror_pad(read_raw_frame(
+                raw, w, h, j * n_comp + c), bc.aw, bc.ah)
+                for c in range(n_comp)]) for j in range(batch)])
+            blocks, mx = bc.prep_batch(torch.from_numpy(
+                first if rgb else first[:, 0]).to(dev))
+            blocks = blocks[0]
+            n_pl = bpc.planes_for_magnitude(int(mx))
+            a, kw = bc._bpc_args(0), dict(bc.codec._bpc_kw, n_planes=n_pl)
+            s_k, z_k = bpc_cuda.encode_blocks(blocks, *a, **kw)
+            _require(torch.equal(bpc_cuda.decode_blocks(s_k, z_k, *a, **kw),
+                                 blocks), f"{label}: kernels' round trip")
+            idx = torch.linspace(0, blocks.shape[0] - 1, BIG_PICKS,
+                                 device=dev).long()
+            sub = (a[0], *(m[idx] for m in a[1:]))
+            s_p, z_p = bpc.encode_blocks_plain(blocks[idx], *sub, **kw)
+            e = max(int((s_p.long() - s_k[idx].long()).abs().max()),
+                    int((z_p.long() - z_k[idx].long()).abs().max()))
+            err["cp2"]["encode"] = max(err["cp2"]["encode"], e)
+            _require(e == 0, f"{label}: {BIG_PICKS} picked blocks of a batch, "
+                     f"encode kernel == plain, max err {e}")
+            o_p = bpc.decode_blocks_plain(s_k[idx], z_k[idx], *sub, **kw)
+            e = int((o_p.long() - blocks[idx].long()).abs().max())
+            err["cp2"]["decode"] = max(err["cp2"]["decode"], e)
+            _require(e == 0, f"{label}: {BIG_PICKS} picked blocks, plain "
+                     "decode of the kernel's streams == input")
+            bound, by = bpc_cuda.bound_ms(blocks)
+            k_enc = kernel_ms(lambda: bpc_cuda.encode_blocks(blocks, *a, **kw))
+            k_dec = kernel_ms(lambda: bpc_cuda.decode_blocks(s_k, z_k, *a,
+                                                             **kw))
+            res["kernel"] = {"codeblocks": blocks.shape[0], "encode_ms": k_enc,
+                             "decode_ms": k_dec, "bound_ms": bound,
+                             "bound_by": by}
+            print(f"{tag} {label}: {blocks.shape[0]} codeblocks a launch, "
+                  f"n_planes {n_pl}; kernels' round trip == input, "
+                  f"{BIG_PICKS} picked blocks byte-equal to plain; BPC encode "
+                  f"kernel {k_enc:.4f} ms, decode {k_dec:.4f} ms a launch "
+                  f"({KERNEL_BATCH} back to back, median of 5); bound "
+                  f"{bound:.5f} ms ({by}), share {bound / k_enc:.4f} / "
+                  f"{bound / k_dec:.4f}")
+            del blocks, s_k, z_k, bc
+            # the engine's API, twice: its stage times
+            enc2 = os.path.join(tmp.name, "api.enc")
+            dec2 = os.path.join(tmp.name, "api.raw")
+            for r in range(2):
+                st = video.encode_video(raw, enc2, cfg, luts, params, n,
+                                        batch=batch, device=dev)
+                stats_line(f"{label} encode_video run {r + 1}", st, n)
+                _require(read(enc2) == read(enc), f"{label}: API == CLI bytes")
+                res[f"encode run {r + 1}"] = st.as_dict()
+                st = video.decode_video(enc2, dec2, cfg, luts, params,
+                                        batch=batch, device=dev)
+                stats_line(f"{label} decode_video run {r + 1}", st, n)
+                _require(read(dec2) == read(raw), f"{label}: API decode")
+                res[f"decode run {r + 1}"] = st.as_dict()
+            if name == VIDEO[0][0]:
+                from torch.profiler import ProfilerActivity, profile
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    st = video.encode_video(raw, enc2, cfg, luts, params, n,
+                                            batch=batch, device=dev)
+                busy, n_spans = busy_ms(prof)
+                wall = res["encode run 2"]["wall_s"] * 1e3
+                if n_spans:
+                    res["busy_ms"] = busy
+                    print(f"{tag} {label}: torch.profiler over one "
+                          f"encode_video: device busy {busy:.4f} ms "
+                          f"({n_spans} kernel and copy spans) in a profiled "
+                          f"wall of {st.wall_s * 1e3:.4f} ms; busy share "
+                          f"{busy / (st.wall_s * 1e3):.4f} of the profiled "
+                          f"wall, {busy / wall:.4f} of run 2's unprofiled "
+                          f"wall ({wall:.4f} ms)")
+                else:
+                    print(f"{tag} {label}: torch.profiler recorded no device "
+                          "activity; device busy share not measured")
+        tmp.cleanup()
+    return out
 
 
 def main() -> int:
@@ -518,6 +760,14 @@ def main() -> int:
         print(f"{tag} {name}: kernel {pt[name]:.6f} ms/call, plain "
               f"{pt[name + ' plain']:.6f} ms/call (max abs err "
               f"{perr[name]})")
+    # the launch floor, timed as the probes are: a one-element torch op
+    one = torch.zeros(1, dtype=torch.int32, device=dev)
+    floor = report(f"launch floor: a one-element torch op (add_), "
+                   f"{PROBE_CALLS} back-to-back calls (total)", device_ms(
+                       lambda: [one.add_(1) for _ in range(PROBE_CALLS)]),
+                   rate=False) / PROBE_CALLS
+    print(f"{tag} launch floor {floor:.6f} ms a call, beside the probes' "
+          f"{pt['probe']:.6f} / {pt['probe2']:.6f} ms")
     probe_launches = {}
     for name, module in (("probe", probe), ("probe2", probe2)):
         print(f"{tag} python -m picsong_tpu_torch.tools.{name}:")
@@ -836,6 +1086,10 @@ def main() -> int:
               f"{bound / big_ms[mode]['decode']:.4f}")
     del big
 
+    # ---- 14. video through the CLI (-video 1), one launch per component
+    # and frame batch ------------------------------------------------------
+    vid = video_phase(dev, tag, err)
+
     # each BPC kernel's bound at the main path's shapes: the same symbols
     # in every mode and direction
     bpc_bound, bpc_by = bpc_cuda.bound_ms(blocks)
@@ -861,6 +1115,15 @@ def main() -> int:
                 "bound_ms": bpc_bound, "bound_by": bpc_by,
                 # no single PyTorch call computes BPC-PaCo
                 "library_ms": None})
+            if mode == "cp2":
+                # the video paths' own launches, at their batch's shape
+                entries[-1]["video"] = [{
+                    "workload": name, "codeblocks": r["kernel"]["codeblocks"],
+                    "launches": r["launches"][d],
+                    "ms": r["kernel"][f"{d}_ms"],
+                    "bound_ms": r["kernel"]["bound_ms"],
+                    "bound_by": r["kernel"]["bound_by"]}
+                    for name, r in vid.items()]
     for name, line in (("probe", 58), ("probe2", 54)):
         module = probe if name == "probe" else probe2
         bound, by = module.bound_ms(*(gpu(x) for x in module.inputs(0)))

@@ -18,6 +18,13 @@ Wire layout (the reference's):
 
 The shorts live in int16 tensors (torch has no general uint16 arithmetic);
 `.view(np.uint16)` of their NumPy form is the codestream.
+
+A batch of video frames is coded frame-major, `n_blocks` codeblocks a
+frame, and packed as one codestream of all its blocks (no header): the
+frames' (MSB, size) pairs and payloads are then contiguous, so
+`split_frames` cuts the downloaded batch into per-frame codestreams on the
+host, and `join_frames` glues per-frame codestreams into one for upload
+(the JAX package's `fuse_packed`/`split_packed` and `_assemble_frame`).
 """
 
 from __future__ import annotations
@@ -44,15 +51,16 @@ def _as_int16(v: torch.Tensor) -> torch.Tensor:
 
 
 def pack_streams(streams: torch.Tensor, sizes: torch.Tensor,
-                 header: np.ndarray | None) -> torch.Tensor:
+                 header: np.ndarray | None,
+                 payload: int | None = None) -> torch.Tensor:
     """(N, 4096) int32 streams + (N,) sizes -> the packed codestream, an
-    int16 tensor on the streams' device. Reads one scalar from the device:
-    the payload length."""
+    int16 tensor on the streams' device. Reads one scalar from the device,
+    the payload length, unless the caller gives it (`sizes.sum() - N`)."""
     n = streams.shape[0]
     dev = streams.device
     counts = sizes.to(torch.int64) - 1
     ends = torch.cumsum(counts, 0)
-    total = int(ends[-1]) if n else 0
+    total = payload if payload is not None else int(ends[-1]) if n else 0
     out = torch.full((stream_length(n, total),), -1, dtype=torch.int16,
                      device=dev)
     if header is not None:
@@ -114,3 +122,45 @@ def unpack_streams(stream: torch.Tensor, n_blocks: int,
         base = HEADER_SHORTS + 2 * n_blocks
         out.view(-1)[block * spec.CBLOCK_SIZE + within] = u[base:base + payload]
     return out, sizes
+
+
+def split_frames(shorts: np.ndarray, n_frames: int, n_blocks: int,
+                 header: np.ndarray | None) -> list[np.ndarray]:
+    """The packed codestream of a batch of `n_frames` frames, `n_blocks`
+    codeblocks a frame, frame-major (uint16 shorts on the host) -> one
+    codestream per frame, each the shorts `pack_streams` gives for that
+    frame's blocks and `header`."""
+    n = n_frames * n_blocks
+    sizes = block_fields(shorts, n)[1]
+    pairs = shorts[HEADER_SHORTS:HEADER_SHORTS + 2 * n]
+    counts = (sizes - 1).reshape(n_frames, n_blocks).sum(axis=1)
+    starts = HEADER_SHORTS + 2 * n + np.concatenate([[0], np.cumsum(counts)])
+    out = []
+    for f in range(n_frames):
+        frame = np.full(stream_length(n_blocks, int(counts[f])), 0xFFFF,
+                        dtype=np.uint16)
+        if header is not None:
+            frame[:HEADER_SHORTS] = header
+        body = HEADER_SHORTS + 2 * n_blocks
+        frame[HEADER_SHORTS:body] = pairs[2 * n_blocks * f:
+                                          2 * n_blocks * (f + 1)]
+        frame[body:-1] = shorts[starts[f]:starts[f + 1]]
+        out.append(frame)
+    return out
+
+
+def join_frames(streams: list[np.ndarray], n_blocks: int) -> tuple[
+        np.ndarray, np.ndarray, np.ndarray]:
+    """Per-frame codestreams of `n_blocks` codeblocks each (uint16 shorts)
+    -> (one codestream of all their blocks, frame-major, with a filler
+    header; the blocks' MSB words; their sizes): the input of one
+    `unpack_streams` for the whole batch."""
+    fields = [block_fields(s, n_blocks) for s in streams]
+    body = HEADER_SHORTS + 2 * n_blocks
+    pairs = [s[HEADER_SHORTS:body] for s in streams]
+    payloads = [s[body:body + int(z.sum()) - n_blocks]
+                for s, (_, z) in zip(streams, fields)]
+    filler = np.full(HEADER_SHORTS, 0xFFFF, dtype=np.uint16)
+    joined = np.concatenate([filler, *pairs, *payloads, filler[:1]])
+    return (joined, np.concatenate([m for m, _ in fields]),
+            np.concatenate([z for _, z in fields]))

@@ -43,15 +43,16 @@ def codeblock_bands(adapted_w: int, adapted_h: int,
 
 
 def plane_to_codeblocks(plane: torch.Tensor) -> torch.Tensor:
-    """(H, W) -> (ncb, 64, 64) in warpID order."""
-    h, w = plane.shape
+    """(..., H, W) -> (..., ncb, 64, 64) in warpID order."""
+    *lead, h, w = plane.shape
     by, bx = h // _CH, w // _CW
-    return (plane.reshape(by, _CH, bx, _CW).permute(0, 2, 1, 3)
-            .reshape(by * bx, _CH, _CW))
+    return (plane.reshape(*lead, by, _CH, bx, _CW).transpose(-3, -2)
+            .reshape(*lead, by * bx, _CH, _CW))
 
 
 def codeblocks_to_plane(blocks: torch.Tensor, h: int, w: int) -> torch.Tensor:
-    """(ncb, 64, 64) in warpID order -> (H, W)."""
+    """(..., ncb, 64, 64) in warpID order -> (..., H, W)."""
+    lead = blocks.shape[:-3]
     by, bx = h // _CH, w // _CW
-    return (blocks.reshape(by, bx, _CH, _CW).permute(0, 2, 1, 3)
-            .reshape(h, w))
+    return (blocks.reshape(*lead, by, bx, _CH, _CW).transpose(-3, -2)
+            .reshape(*lead, h, w))

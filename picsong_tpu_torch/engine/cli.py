@@ -4,8 +4,10 @@ Same flags, defaults and validation (Launcher.cu:36-163); on decode every
 configuration value comes from the codestream header. Image mode, for
 every configuration `TorchCodec` covers (gray or planar RGB, lossless 5/3
 or lossy 9/7, up to 16 bits per sample, signed or unsigned, either
-endianness, -cp 2 or 3, any -k); video and sharded coding print "not yet
-ported" and exit with status 2. One extra flag, `--device` (default
+endianness, -cp 2 or 3, any -k), and video mode (-video 1) for the same
+configurations on a planar RAW frame sequence, `-numberOfStreams` frames
+a batch (`engine/video.py`); sharded coding (-sharded N > 1) prints "not
+yet ported" and exits with status 2. One extra flag, `--device` (default
 `cuda`), picks the device the codec runs on.
 
   python -m picsong_tpu_torch.engine.cli -cd 0 -i in.pgm -o out.enc \
@@ -18,6 +20,10 @@ ported" and exit with status 2. One extra flag, `--device` (default
       -wl 5 -cp 2 -k 5 -LUTFolder trained
   python -m picsong_tpu_torch.engine.cli -cd 1 -i out.enc -o dec.raw \
       -LUTFolder trained
+  python -m picsong_tpu_torch.engine.cli -cd 0 -i video.raw -o video.enc \
+      -xSize 1920 -ySize 1080 -video 1 -frames 100 -numberOfStreams 8
+  python -m picsong_tpu_torch.engine.cli -cd 1 -i video.enc -o dec.raw \
+      -video 1 -numberOfStreams 8
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ from ..core.image_io import (append_raw_frame, read_codestream,
                              write_pgm)
 from ..core.lut import LUTParams, load_luts, neutral_lut
 from .pipeline import TorchCodec
+from .video import decode_video, encode_video
 
 HELP = """PICSONG codec, PyTorch/CUDA port. Options (reference-compatible):
   -h                 show this help
@@ -48,14 +55,14 @@ HELP = """PICSONG codec, PyTorch/CUDA port. Options (reference-compatible):
   -cbWidth N         codeblock width knob (multiple of 64)
   -cbHeight N        DWT tile length knob (18..20)
   -xSize N -ySize N  image width / height (RAW inputs)
-  -video [0|1]       frame-sequence mode (not ported yet)
+  -video [0|1]       frame-sequence mode (planar RAW frames)
   -frames N          number of frames (video encode)
   -isRGB [0|1]       planar RGB input
   -components N      component count
   -bps N             bits per sample (8, 12 or 16)
   -endianess [0|1]   sample endianness
   -signedOrUnsigned [0|1]
-  -numberOfStreams N video frame batch size
+  -numberOfStreams N video frame batch size (frames a launch, default 8)
   -sharded N         shard coding over N devices (not ported yet)
   -LUTFolder PATH    LUT folder (or 'neutral' / 'trained': the lossless
                      or, with -type 1, the lossy trained tables)
@@ -114,6 +121,17 @@ def _read_encode_input(path: str, cfg: CodecConfig):
     return read_raw_frame(path, cfg.width, cfg.height, 0, dtype)
 
 
+def _read_codestreams(path: str) -> list[np.ndarray]:
+    """The component codestreams of an image file: by its `_SIZE` sidecar,
+    or the whole file as one codestream without it."""
+    if not os.path.exists(path + "_SIZE"):
+        return [read_codestream(path, 0, os.path.getsize(path) // 2)]
+    sizes = read_sizes(path)
+    offsets = np.concatenate([[0], np.cumsum(sizes)])
+    return [read_codestream(path, int(offsets[j]), int(sizes[j]))
+            for j in range(len(sizes))]
+
+
 def _write_decoded(path: str, out, cfg: CodecConfig) -> None:
     """RGB as planar RAW; gray as PGM (by extension) or RAW, in the
     header's sample type."""
@@ -139,8 +157,8 @@ def main(argv: list[str] | None = None) -> int:
     input_file = opts.get("i", "")
     output_file = opts.get("o", "")
     device = opts.get("device", "cuda")
-    if int(opts.get("video", 0)) == 1:
-        return _not_ported("video mode (ROADMAP queue 1 item 10)")
+    streams_depth = int(opts.get("numberOfStreams", 8))
+    is_video = int(opts.get("video", 0)) == 1
     if int(opts.get("sharded", 0)) > 1:
         return _not_ported("sharded coding (ROADMAP queue 1 item 13)")
 
@@ -180,28 +198,36 @@ def main(argv: list[str] | None = None) -> int:
                           endianess=endianess, bps=bps, is_signed=is_signed,
                           frames=frames, k_factor=k)
         luts, params = _load_luts(opts.get("LUTFolder", ""), wl, cp, k, lossy)
-        pixels = _read_encode_input(input_file, cfg)
-        codec = TorchCodec(cfg, luts, params, device)
-        streams = codec.encode(pixels)
-        for j, s in enumerate(streams):
-            write_codestream(output_file, s, first=(j == 0))
+        if is_video:
+            stats = encode_video(input_file, output_file, cfg, luts, params,
+                                 frames, batch=max(streams_depth, 1),
+                                 progress=True, device=device)
+            print(f"Encoded {stats.frames} frames in {stats.wall_s:.3f}s "
+                  f"(batch {stats.batch}, compute {stats.compute_s:.3f}s, "
+                  f"reader stall {stats.reader_stall_s:.3f}s, writer stall "
+                  f"{stats.writer_stall_s:.3f}s, writer busy "
+                  f"{stats.writer_busy_s:.3f}s)")
+        else:
+            pixels = _read_encode_input(input_file, cfg)
+            codec = TorchCodec(cfg, luts, params, device)
+            streams = codec.encode(pixels)
+            for j, s in enumerate(streams):
+                write_codestream(output_file, s, first=(j == 0))
     elif cd == 1:
         cfg = unpack_header(read_header_shorts(input_file))
         luts, params = _load_luts(opts.get("LUTFolder", ""),
                                   cfg.wavelet_levels, cfg.coding_passes,
                                   cfg.k_factor, cfg.is_lossy)
-        sizes = (read_sizes(input_file)
-                 if os.path.exists(input_file + "_SIZE") else None)
-        if sizes is None:
-            n_shorts = os.path.getsize(input_file) // 2
-            comp_streams = [read_codestream(input_file, 0, n_shorts)]
+        if is_video:
+            stats = decode_video(input_file, output_file, cfg, luts, params,
+                                 batch=max(streams_depth, 1), progress=True,
+                                 device=device)
+            print(f"Decoded {stats.frames} frames in {stats.wall_s:.3f}s "
+                  f"(compute {stats.compute_s:.3f}s)")
         else:
-            offsets = np.concatenate([[0], np.cumsum(sizes)])
-            comp_streams = [read_codestream(input_file, int(offsets[j]),
-                                            int(sizes[j]))
-                            for j in range(len(sizes))]
-        out = TorchCodec(cfg, luts, params, device).decode(comp_streams)
-        _write_decoded(output_file, out, cfg)
+            out = TorchCodec(cfg, luts, params, device).decode(
+                _read_codestreams(input_file))
+            _write_decoded(output_file, out, cfg)
     else:
         print("Incorrect parameters. Please choose valid values.")
         return 1

@@ -270,21 +270,35 @@ def _tri(t: np.ndarray, period: int) -> np.ndarray:
     return np.abs((t % period) * 4 - 2 * period) - period
 
 
+def _pattern(height: int, width: int, seed: int, dx: int = 0,
+             dy: int = 0) -> np.ndarray:
+    """120 + 70 * tri(x + dx) * tri(y + dy) (the waves' periods 69 and 107
+    samples) plus uniform noise in [-10, 10] (sigma ~6), as int64."""
+    px, py = 69, 107
+    tx = _tri(np.arange(width, dtype=np.int64) + dx, px)
+    ty = _tri(np.arange(height, dtype=np.int64) + dy, py)
+    rng = np.random.default_rng(seed)
+    noise = rng.integers(-10, 11, size=(height, width), dtype=np.int64)
+    return (120 * px * py + 70 * ty[:, None] * tx[None, :]) // (px * py) \
+        + noise
+
+
 def make_image(size: int, seed: int = 3, width: int | None = None,
                peak: int = 255) -> np.ndarray:
-    """A smooth pattern (120 + 70 * tri(x) * tri(y), the waves' periods
-    69 and 107 samples) plus uniform noise in [-10, 10] (sigma ~6), 8-bit,
-    or scaled to `peak` as uint16; integer arithmetic only."""
-    width = width or size
-    px, py = 69, 107
-    tx = _tri(np.arange(width, dtype=np.int64), px)
-    ty = _tri(np.arange(size, dtype=np.int64), py)
-    rng = np.random.default_rng(seed)
-    noise = rng.integers(-10, 11, size=(size, width), dtype=np.int64)
-    img = (120 * px * py + 70 * ty[:, None] * tx[None, :]) // (px * py)
-    img = ((img + noise) * peak) // 255
+    """The pattern with its noise, 8-bit, or scaled to `peak` as uint16;
+    integer arithmetic only."""
+    img = (_pattern(size, width or size, seed) * peak) // 255
     return np.clip(img, 0, peak).astype(np.uint8 if peak == 255
                                         else np.uint16)
+
+
+def make_frame(height: int, width: int, index: int,
+               seed: int = 3) -> np.ndarray:
+    """Frame `index` of a test video, 8-bit: the pattern moved by 3
+    samples a frame to the left and 2 up, with the frame's own noise
+    (seed + index); integer arithmetic only."""
+    img = _pattern(height, width, seed + index, 3 * index, 2 * index)
+    return np.clip(img, 0, 255).astype(np.uint8)
 
 
 def image_key(size: int, seed: int = 3, width: int | None = None,

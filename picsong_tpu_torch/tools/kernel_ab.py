@@ -3,6 +3,7 @@ checkout's, on one card, in one process.
 
     python -m picsong_tpu_torch.tools.kernel_ab --other DIR [--sizes 2048,8192]
     python -m picsong_tpu_torch.tools.kernel_ab --other DIR --sweep
+    python -m picsong_tpu_torch.tools.kernel_ab --other DIR --layers
 
 DIR is the root of another checkout (a `git archive` of the parent
 commit, say); its `picsong_tpu_torch/csrc` is built into `DIR/build/ab`.
@@ -18,23 +19,39 @@ JSON line per (size, mode, direction) with both trees' times, the bound
 largest magnitude outside the LL band) copied n times, n from 1 to 4224:
 while the copies fit in one wave of resident CTAs, the time is one
 block's dependency chain.
+
+`--layers` instead times the torch-op layers around the kernels, each
+tree's own `TorchCodec` (the other tree's package imported under another
+name) on the same 2048^2 plane, in the same turns: prep + DWT + tiling and
+untile + inverse DWT + clamp (CUDA events around one call, as
+chip_smoke.py's layers; sixteen turns of ten), lossless 5/3 wl=5 and lossy 9/7 wl=3 qs=1; for
+the lossless one also the device encode and decode and the CLI round trip
+(host clock with a synchronize, as chip_smoke.py's). Outputs must be equal.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import importlib
+import importlib.util
+import io
 import json
 import os
 import statistics
 import subprocess
 import sys
+import tempfile
+import time
 
 BATCH = 20
 ITERS = 10
 SWEEP = (1, 33, 66, 132, 264, 528, 1056, 2112, 4224)
+# the host's clock drifts within a run, so the layers take more turns
+LAYER_TURNS = ("other", "this", "this", "other") * 4
 
 
-def _times(fn) -> list[float]:
+def _times(fn, per: int = BATCH) -> list[float]:
     import torch
     fn()
     torch.cuda.synchronize()
@@ -43,12 +60,136 @@ def _times(fn) -> list[float]:
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        for _ in range(BATCH):
+        for _ in range(per):
             fn()
         b.record()
         torch.cuda.synchronize()
-        out.append(a.elapsed_time(b) / BATCH)
+        out.append(a.elapsed_time(b) / per)
     return out
+
+
+def _host_times(fn) -> list[float]:
+    import torch
+    fn()
+    out = []
+    for _ in range(ITERS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t) * 1e3)
+    return out
+
+
+def _other_package(root: str):
+    """The other checkout's picsong_tpu_torch, imported as `ab_other` (its
+    imports within the package are relative)."""
+    pkg = os.path.join(root, "picsong_tpu_torch")
+    spec = importlib.util.spec_from_file_location(
+        "ab_other", os.path.join(pkg, "__init__.py"),
+        submodule_search_locations=[pkg])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules["ab_other"] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _layers(other_root: str, card: str) -> int:
+    """Both trees' torch-op layers on one 2048^2 plane, in turns."""
+    import numpy as np
+    import torch
+
+    from ..core.image_io import write_pgm
+    from ..engine import cli
+    from . import goldens
+
+    _other_package(other_root)
+    trees = {t: {m: importlib.import_module(f"{pkg}.{m}")
+                 for m in ("engine.pipeline", "engine.cli", "core.header")}
+             for t, pkg in (("other", "ab_other"),
+                            ("this", "picsong_tpu_torch"))}
+    dev = torch.device("cuda")
+    size = 2048
+    img = goldens.make_image(size)
+    samples = torch.from_numpy(img).to(dev)
+    tmp = tempfile.TemporaryDirectory()
+    src = os.path.join(tmp.name, "in.pgm")
+    write_pgm(src, img)
+    for name, kw in (("lossless 5/3 wl=5", dict(wavelet_levels=5)),
+                     ("lossy 9/7 wl=3 qs=1", dict(wavelet_levels=3,
+                                                  is_lossy=True, qs=1.0))):
+        luts, params = cli._load_luts("neutral", kw["wavelet_levels"], 2, 0.0,
+                                      lossy=kw.get("is_lossy", False))
+        codecs = {t: m["engine.pipeline"].TorchCodec(
+            m["core.header"].CodecConfig(width=size, height=size, **kw),
+            luts, params, dev) for t, m in trees.items()}
+        blocks = {t: c._dwt_tile_impl(c._prep_gray_impl(samples))[0]
+                  for t, c in codecs.items()}
+        back = {t: c._finish_gray_impl(c._untile_idwt_impl(blocks[t]))
+                for t, c in codecs.items()}
+        if not (torch.equal(blocks["this"], blocks["other"])
+                and torch.equal(back["this"], back["other"])):
+            print(f"kernel_ab: {name}: the trees' layers disagree",
+                  file=sys.stderr)
+            return 1
+        layers = {
+            "prep+DWT+tile": lambda c: (lambda: c._dwt_tile_impl(
+                c._prep_gray_impl(samples))),
+            "untile+IDWT+clamp": lambda c: (lambda: c._finish_gray_impl(
+                c._untile_idwt_impl(blocks["this"]))),
+        }
+        if not kw.get("is_lossy"):
+            enc = os.path.join(tmp.name, "o.enc")
+            dec = os.path.join(tmp.name, "d.pgm")
+            streams, n_planes = codecs["this"].encode_planes([samples])
+            coded = [(s, z, n_planes) for s, z in streams]
+
+            def round_trip(t):
+                main = trees[t]["engine.cli"].main
+
+                def run():
+                    with contextlib.redirect_stdout(io.StringIO()):
+                        main(["-cd", "0", "-i", src, "-o", enc, "-wl", "5",
+                              "-video", "0", "-LUTFolder", "neutral"])
+                        main(["-cd", "1", "-i", enc, "-o", dec, "-video",
+                              "0", "-LUTFolder", "neutral"])
+                return run
+            layers.update({
+                "device encode": lambda c: (lambda: c.encode_planes(
+                    [samples])),
+                "device decode": lambda c: (lambda: c.decode_planes(coded)),
+            })
+        for layer, make in layers.items():
+            host = layer.startswith("device")
+            samples_ms = {"other": [], "this": []}
+            for t in LAYER_TURNS:
+                fn = make(codecs[t])
+                samples_ms[t] += (_host_times(fn) if host
+                                  else _times(fn, per=1))
+            _print_ab(name, layer, "host clock" if host else "CUDA events",
+                      samples_ms, card)
+        if not kw.get("is_lossy"):
+            samples_ms = {"other": [], "this": []}
+            for t in LAYER_TURNS:
+                samples_ms[t] += _host_times(round_trip(t))
+            if not np.array_equal(np.fromfile(dec, np.uint8)[-img.size:],
+                                  img.ravel()):
+                print("kernel_ab: CLI round trip not bit-exact",
+                      file=sys.stderr)
+                return 1
+            _print_ab(name, "CLI round trip", "host clock", samples_ms, card)
+    tmp.cleanup()
+    return 0
+
+
+def _print_ab(config, layer, clock, samples, card) -> None:
+    print(json.dumps({
+        "config": config, "layer": layer, "clock": clock,
+        "ms": statistics.median(samples["this"]),
+        "other_ms": statistics.median(samples["other"]),
+        "ms_min": min(samples["this"]),
+        "other_ms_min": min(samples["other"]), "n": len(samples["this"]),
+        "card": card}), flush=True)
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -56,6 +197,7 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--other", required=True)
     ap.add_argument("--sizes", default="2048,8192")
     ap.add_argument("--sweep", action="store_true")
+    ap.add_argument("--layers", action="store_true")
     args = ap.parse_args(argv)
 
     import torch
@@ -75,6 +217,8 @@ def main(argv: list[str] | None = None) -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.splitlines()[0]
     print(card)
+    if args.layers:
+        return _layers(os.path.abspath(args.other), card)
     other_dir = os.path.join(os.path.abspath(args.other), "build", "ab")
     other_lib, _ = kernels.build(
         build_dir=other_dir,

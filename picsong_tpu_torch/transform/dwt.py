@@ -3,7 +3,9 @@ layout.
 
 Counterpart of `picsong_tpu.transform.dwt`: full-plane lifting with
 symmetric boundary extension, vertical pass then horizontal on the way
-forward, horizontal then vertical on the way back.
+forward, horizontal then vertical on the way back. A plane is the last
+two dimensions of a tensor, so a (B, H, W) batch of frames transforms in
+one sequence of ops, each element as it would alone.
 
 5/3: torch's `>>` on int32 is an arithmetic shift, which is the
 reference's rounding (DWTGenerator.cu:70-85), so the output is
@@ -38,25 +40,25 @@ def _div(x: torch.Tensor, c) -> torch.Tensor:
     return x / torch.full((), float(c), dtype=torch.float32, device=x.device)
 
 
-# Vertical pass: rows are axis 0.
+# Vertical pass: rows are axis -2.
 
 def _split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    h = x.shape[0]
-    pairs = x.reshape(h // 2, 2, *x.shape[1:])
-    return pairs[:, 0], pairs[:, 1]
+    *lead, h, w = x.shape
+    pairs = x.reshape(*lead, h // 2, 2, w)
+    return pairs[..., 0, :], pairs[..., 1, :]
 
 
 def _merge(even: torch.Tensor, odd: torch.Tensor) -> torch.Tensor:
-    out = torch.stack([even, odd], dim=1)
-    return out.reshape(even.shape[0] * 2, *even.shape[1:])
+    *lead, h, w = even.shape
+    return torch.stack([even, odd], dim=-2).reshape(*lead, h * 2, w)
 
 
 def _nxt(a: torch.Tensor) -> torch.Tensor:
-    return torch.cat([a[1:], a[-1:]], dim=0)
+    return torch.cat([a[..., 1:, :], a[..., -1:, :]], dim=-2)
 
 
 def _prv(a: torch.Tensor) -> torch.Tensor:
-    return torch.cat([a[:1], a[:-1]], dim=0)
+    return torch.cat([a[..., :1, :], a[..., :-1, :]], dim=-2)
 
 
 def _fwd53(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -91,25 +93,25 @@ def _inv97(s: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
     return _merge(even, odd)
 
 
-# Horizontal pass: columns are axis 1.
+# Horizontal pass: columns are axis -1.
 
 def _split_l(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    h, w = x.shape
-    pairs = x.reshape(h, w // 2, 2)
+    *lead, w = x.shape
+    pairs = x.reshape(*lead, w // 2, 2)
     return pairs[..., 0], pairs[..., 1]
 
 
 def _merge_l(even: torch.Tensor, odd: torch.Tensor) -> torch.Tensor:
-    out = torch.stack([even, odd], dim=2)
-    return out.reshape(even.shape[0], even.shape[1] * 2)
+    *lead, w = even.shape
+    return torch.stack([even, odd], dim=-1).reshape(*lead, w * 2)
 
 
 def _nxt_l(a: torch.Tensor) -> torch.Tensor:
-    return torch.cat([a[:, 1:], a[:, -1:]], dim=1)
+    return torch.cat([a[..., 1:], a[..., -1:]], dim=-1)
 
 
 def _prv_l(a: torch.Tensor) -> torch.Tensor:
-    return torch.cat([a[:, :1], a[:, :-1]], dim=1)
+    return torch.cat([a[..., :1], a[..., :-1]], dim=-1)
 
 
 def _fwd53_h(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -160,7 +162,7 @@ def _inv_level(ll, hl, lh, hh, lossy: bool) -> torch.Tensor:
 
 
 def _check(shape, levels: int) -> None:
-    h, w = shape
+    h, w = shape[-2:]
     if levels < 1 or h % (1 << levels) or w % (1 << levels):
         raise ValueError(
             f"{levels} wavelet levels need a plane whose sides are multiples "
@@ -171,7 +173,7 @@ def dwt_forward(plane: torch.Tensor, levels: int, lossy: bool = False,
                 qs: float = 1.0) -> torch.Tensor:
     """Forward multi-level DWT into the Mallat mosaic.
 
-    Lossless: int32 (H, W) -> int32. Lossy: float32 -> float32, each
+    Lossless: int32 (..., H, W) -> int32. Lossy: float32 -> float32, each
     subband scaled by its gain * qs (the final LL too, the intermediate LL
     not; writeSubbands, DWTGenerator.cu:403-433); truncate to int32 before
     entropy coding."""
@@ -194,8 +196,8 @@ def dwt_forward(plane: torch.Tensor, levels: int, lossy: bool = False,
         cur = ll
     out = cur
     for hl, lh, hh in reversed(quads):
-        out = torch.cat([torch.cat([out, hl], dim=1),
-                         torch.cat([lh, hh], dim=1)], dim=0)
+        out = torch.cat([torch.cat([out, hl], dim=-1),
+                         torch.cat([lh, hh], dim=-1)], dim=-2)
     return out
 
 
@@ -210,26 +212,26 @@ def _dequant(q: torch.Tensor, gain, qs32) -> torch.Tensor:
 
 def dwt_reverse(mallat: torch.Tensor, levels: int, lossy: bool = False,
                 qs: float = 1.0) -> torch.Tensor:
-    """Inverse multi-level DWT from an integer Mallat mosaic: int32 out
-    (5/3), or float32 out after midpoint dequantization (9/7)."""
+    """Inverse multi-level DWT from an integer (..., H, W) Mallat mosaic:
+    int32 out (5/3), or float32 out after midpoint dequantization (9/7)."""
     _check(mallat.shape, levels)
     mallat = mallat.to(torch.int32)
-    h, w = mallat.shape
+    h, w = mallat.shape[-2:]
     qs32 = np.float32(qs)
     ll = None
     for level in range(levels - 1, -1, -1):
         hh_, wh_ = h >> (level + 1), w >> (level + 1)
-        hl = mallat[:hh_, wh_:2 * wh_]
-        lh = mallat[hh_:2 * hh_, :wh_]
-        hh = mallat[hh_:2 * hh_, wh_:2 * wh_]
+        hl = mallat[..., :hh_, wh_:2 * wh_]
+        lh = mallat[..., hh_:2 * hh_, :wh_]
+        hh = mallat[..., hh_:2 * hh_, wh_:2 * wh_]
         if lossy:
             g = spec.WAVELET_QSTEPS[level]
             hl = _dequant(hl, g[spec.QS_HL], qs32)
             lh = _dequant(lh, g[spec.QS_LH], qs32)
             hh = _dequant(hh, g[spec.QS_HH], qs32)
             if level == levels - 1:
-                ll = _dequant(mallat[:hh_, :wh_], g[spec.QS_LL], qs32)
+                ll = _dequant(mallat[..., :hh_, :wh_], g[spec.QS_LL], qs32)
         elif ll is None:
-            ll = mallat[:hh_, :wh_]
+            ll = mallat[..., :hh_, :wh_]
         ll = _inv_level(ll, hl, lh, hh, lossy)
     return ll

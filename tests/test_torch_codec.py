@@ -132,14 +132,15 @@ def test_cli_round_trip(tmp_path, lut_folder):
 
 
 @pytest.mark.parametrize("flags", [
-    ["-video", "1"], ["-sharded", "2"], ["-isRGB", "1", "-cp", "3"],
+    ["-video", "1", "-frames", "1"], ["-sharded", "2"],
+    ["-isRGB", "1", "-cp", "3"],
     ["-type", "1", "-k", "2"], ["-cp", "3"], ["-k", "2"],
     ["-bps", "12", "-cp", "3"],
 ])
 def test_cli_unported_flags_exit_2(tmp_path, capsys, flags):
-    """Video and sharded coding exit 2; the cp=3 and -k flags, refused
-    until they were ported, now round-trip a planar RAW frame (bit-exact
-    for lossless; a gray codestream is the oracle's, byte for byte)."""
+    """Sharded coding exits 2; video, cp=3 and -k, refused until they
+    were ported, now round-trip a planar RAW frame (bit-exact for
+    lossless; a gray codestream is the oracle's, byte for byte)."""
     opts = dict(zip(flags[::2], flags[1::2]))
     rgb, bps = opts.get("-isRGB") == "1", int(opts.get("-bps", 8))
     img = make_image(np.random.default_rng(3), 64, 64).astype(np.uint16)
@@ -151,20 +152,22 @@ def test_cli_unported_flags_exit_2(tmp_path, capsys, flags):
         append_raw_frame(src, plane, dtype)
     rc = cli.main(["-cd", "0", "-i", src, "-o", enc, "-xSize", "64",
                    "-ySize", "64", "-wl", "1", "--device", "cpu", *flags])
-    if flags[0] in ("-video", "-sharded"):
+    if flags[0] == "-sharded":
         assert rc == 2
         assert "not yet ported" in capsys.readouterr().out
         assert not os.path.exists(enc)
         return
     assert rc == 0
-    assert cli.main(["-cd", "1", "-i", enc, "-o", dec, "--device",
-                     "cpu"]) == 0
+    video = ["-video", "1"] if "-video" in opts else []
+    assert cli.main(["-cd", "1", "-i", enc, "-o", dec, "--device", "cpu",
+                     *video]) == 0
     back = [read_raw_frame(dec, 64, 64, c, dtype) for c in range(len(planes))]
     lossy = opts.get("-type") == "1"
     cp, k = int(opts.get("-cp", 2)), float(opts.get("-k", 0))
     cfg = CodecConfig(width=64, height=64, wavelet_levels=1, coding_passes=cp,
                       k_factor=k, is_lossy=lossy, bps=bps, bit_depth=bps,
-                      is_rgb=rgb, components=3 if rgb else 1)
+                      is_rgb=rgb, components=3 if rgb else 1,
+                      frames=int(opts.get("-frames", 0)))
     luts, params = cli._load_luts("", 1, cp, k, lossy)
     if lossy:
         want = oracle.encode_image(planes[0], J(cfg), luts, J(params))

@@ -16,7 +16,10 @@ from picsong_tpu.assembly import pack as host_pack
 from picsong_tpu.reference import codec as oracle
 from picsong_tpu_torch.assembly import pack
 from picsong_tpu_torch.core.header import CodecConfig, pack_header
+from picsong_tpu_torch.core.image_io import mirror_pad
 from picsong_tpu_torch.core.lut import LUTParams, neutral_lut
+from picsong_tpu_torch.engine import video
+from picsong_tpu_torch.engine.batch import BatchCodec
 from picsong_tpu_torch.engine.pipeline import TorchCodec
 from picsong_tpu_torch.entropy import bpc, bpc_cuda
 from picsong_tpu_torch.tools import probe, probe2
@@ -235,3 +238,76 @@ def test_lossy_512_on_cuda_matches_oracle(cuda):
     assert np.array_equal(got[0], want[0])
     assert np.array_equal(codec.decode(got),
                           oracle.decode_image(want, J(cfg), luts, J(PARAMS)))
+
+
+def _frames(seed, n, h=64, w=128):
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:h, 0:w]
+    return [np.clip(96 + 64 * np.sin((x + 5 * i) / 9.0) * np.cos(y / 13.0)
+                    + rng.normal(0, 8, size=(h, w)), 0, 255).astype(np.uint8)
+            for i in range(n)]
+
+
+@pytest.mark.parametrize("rgb,lossy", [(False, False), (True, True)])
+def test_video_on_cuda_equals_cpu_port(cuda, tmp_path, rgb, lossy):
+    """Five frames, batch 2 (a padded tail): the file and `_SIZE` sidecar
+    the card writes equal the CPU port's, with one encode and one decode
+    launch per component and batch; the lossless decode is bit-exact, the
+    lossy one equal to the CPU port's."""
+    n_comp = 3 if rgb else 1
+    planes = _frames(6, 5 * n_comp)
+    raw, enc, enc_cpu, dec, dec_cpu = (str(tmp_path / n) for n in (
+        "v.raw", "g.enc", "c.enc", "g.raw", "c.raw"))
+    with open(raw, "wb") as f:
+        for p in planes:
+            f.write(p.tobytes())
+    cfg = CodecConfig(width=128, height=64, wavelet_levels=2, frames=5,
+                      is_rgb=rgb, components=n_comp, is_lossy=lossy)
+    luts = [neutral_lut(PARAMS, 2, 2)] * n_comp
+    bpc_cuda.reset_launches()
+    stats = video.encode_video(raw, enc, cfg, luts, PARAMS, frames=5,
+                               batch=2, device=cuda)
+    assert stats.batches == 3
+    assert bpc_cuda.ENCODE_LAUNCHES["cp2"] == 3 * n_comp
+    video.encode_video(raw, enc_cpu, cfg, luts, PARAMS, frames=5, batch=2,
+                       device="cpu")
+    for suffix in ("", "_SIZE"):
+        assert open(enc + suffix, "rb").read() == \
+            open(enc_cpu + suffix, "rb").read()
+    video.decode_video(enc, dec, cfg, luts, PARAMS, batch=2, device=cuda)
+    assert bpc_cuda.DECODE_LAUNCHES["cp2"] == 3 * n_comp
+    if lossy:
+        video.decode_video(enc, dec_cpu, cfg, luts, PARAMS, batch=2,
+                           device="cpu")
+        raw = dec_cpu
+    assert open(dec, "rb").read() == open(raw, "rb").read()
+
+
+def test_batch_pack_equals_per_frame_pack(cuda):
+    """A batch of three frames coded in one launch on the card, packed once
+    with its payload length given: cut per frame, it is `pack_streams` of
+    each frame's own blocks; joined again and unpacked on the card, it is
+    the kernel's streams and sizes."""
+    frames = _frames(7, 3)
+    cfg = CodecConfig(width=128, height=64, wavelet_levels=2)
+    bc = BatchCodec(cfg, [neutral_lut(PARAMS, 2, 2)], PARAMS, 3, cuda)
+    padded = torch.from_numpy(np.stack([mirror_pad(f, bc.aw, bc.ah)
+                                        for f in frames])).to(cuda)
+    blocks, max_mag = bc.prep_batch(padded)
+    (streams, sizes), = bc.encode_blocks(
+        blocks, bpc.planes_for_magnitude(int(max_mag)))
+    n = streams.shape[0]
+    payload = int(sizes.sum()) - n
+    shorts = pack.pack_streams(streams, sizes, None, payload=payload)
+    shorts = shorts.cpu().numpy().view(np.uint16)
+    hdr = pack_header(cfg)
+    per_frame = pack.split_frames(shorts, 3, bc.ncb, hdr)
+    for f, got in enumerate(per_frame):
+        rows = slice(f * bc.ncb, (f + 1) * bc.ncb)
+        want = pack.pack_streams(streams[rows], sizes[rows], hdr)
+        assert np.array_equal(got, want.cpu().numpy().view(np.uint16))
+    joined, _, _ = pack.join_frames(per_frame, bc.ncb)
+    assert np.array_equal(joined, shorts)
+    s_back, z_back = pack.unpack_streams(
+        torch.from_numpy(joined.view(np.int16)).to(cuda), n, payload)
+    assert torch.equal(s_back, streams) and torch.equal(z_back, sizes)
