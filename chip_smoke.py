@@ -38,6 +38,16 @@ or of the JAX package `picsong_tpu` is imported:
   64 picked blocks of a batch equal to the plain coder, the kernels'
   time at the batch's shape, the engine's stage times and, from
   torch.profiler, the card's busy time over one 1080p encode;
+- the distribution layer (`sharded_phase`), every shard on the card:
+  `ShardedCodec` at 2048x2048 wl=5 lossless on 2, 3 and 4 shards, lossy
+  2048x2048 wl=3 and RGB 2048x2560 lossy on 2, 1920x1080 on 4 (uneven
+  rows), each codestream equal to the unsharded card codestream and each
+  decode to the unsharded decode, one BPC launch per codeblock shard and
+  component; device encode / decode and CLI round trips unsharded and on
+  2 and 4 shards; the CLI's -sharded 2 round trip; 1080p video (24
+  frames) with devices=2 against devices=1; two multi-host processes in
+  a gloo group on the card (this script with --multihost-worker), the
+  merged files equal to the single-host ones;
 on each path after the main one it also holds the BPC kernels equal to
 their plain versions on every component's codeblocks, at the path's
 n_planes and with the component's LUT; on the lossy ones it holds the
@@ -54,7 +64,9 @@ cp2 kernels' on the 2048^2 CLI round trips (the main path) and each
 other mode's on its own 2048^2 round trips; the cp2 entries add, under
 "video", each video workload's own launches (one CLI encode or decode,
 counts reset just before it) beside the kernels' time and bound at that
-workload's batch shape.
+workload's batch shape, and under "sharded" each sharded workload's
+launches (counts reset just before its encode) beside the kernels' time
+and bound at the shape of its first shard's launch.
 
 Exits non-zero, printing no result, when there is no CUDA device or any
 check fails. Otherwise its last three lines are a JSON object with each
@@ -106,6 +118,49 @@ def psnr(a, b, peak: float = 255.0) -> float:
                                                  1e-12)))
 
 
+def device_ms(fn, iters=ITERS, warm=2, per=1):
+    """CUDA-event times of `fn`; with `per` > 1, of `per` back-to-back
+    calls divided by `per`, which keeps the wrapper's host time out of a
+    kernel's time."""
+    import torch
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(iters):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(per):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+        out.append(a.elapsed_time(b) / per)
+    return out
+
+
+def host_ms(fn, iters=ITERS, warm=1):
+    """Host-clock times of `fn`, each between two synchronisations."""
+    import torch
+    for _ in range(warm):
+        fn()
+    out = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t) * 1e3)
+    return out
+
+
+def kernel_ms(fn, iters=5):
+    """One kernel launch's time: the median over `iters` of KERNEL_BATCH
+    back-to-back launches."""
+    return statistics.median(device_ms(fn, iters=iters, warm=1,
+                                       per=KERNEL_BATCH))
+
+
 # the video workloads: (name, width, height, frames, batch, RGB, LUT
 # folders); the first folder's run is also timed through the engine's API
 VIDEO = (
@@ -150,21 +205,6 @@ def video_phase(dev, tag: str, err: dict) -> dict:
     def read(path):
         with open(path, "rb") as f:
             return f.read()
-
-    def kernel_ms(fn, iters=5):
-        fn()
-        torch.cuda.synchronize()
-        out = []
-        for _ in range(iters):
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            for _ in range(KERNEL_BATCH):
-                fn()
-            b.record()
-            torch.cuda.synchronize()
-            out.append(a.elapsed_time(b) / KERNEL_BATCH)
-        return statistics.median(out)
 
     def busy_ms(prof):
         """The union of the device's kernel and copy spans, in ms, and
@@ -334,7 +374,397 @@ def video_phase(dev, tag: str, err: dict) -> dict:
     return out
 
 
+# the sharded workloads (`sharded_phase`): shard counts of the 2048^2
+# lossless main path on one card, and the frame-parallel and multi-host
+# video at 1080p
+SHARDS = (2, 3, 4)
+UNEVEN = (1920, 1080, 4)                 # width, height, shards
+SHARDED_VIDEO = (1920, 1080, 24, 8)      # width, height, frames, batch
+HOSTS = 2
+
+
+def _free_port() -> int:
+    import socket
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def multihost_worker(argv: list[str]) -> int:
+    """One host of the multi-host run (`chip_smoke.py --multihost-worker
+    RANK HOSTS PORT DIR DEVICE WIDTH HEIGHT FRAMES BATCH LEVELS`): joins
+    the gloo group at 127.0.0.1:PORT, encodes and decodes its slab of
+    DIR/in.raw (lossless, neutral LUT) on DEVICE, after one untimed
+    round, and prints its stats as one JSON line after "MULTIHOST "."""
+    rank, hosts, port, d, device = (int(argv[0]), int(argv[1]), argv[2],
+                                    argv[3], argv[4])
+    w, h, n, batch, levels = (int(x) for x in argv[5:10])
+    sys.modules["jax"] = None
+    sys.modules["picsong_tpu"] = None
+    import torch.distributed as dist
+
+    from picsong_tpu_torch.core.header import CodecConfig
+    from picsong_tpu_torch.dist import multihost as mh
+    from picsong_tpu_torch.engine import cli
+    from picsong_tpu_torch.entropy import bpc_cuda
+
+    cfg = CodecConfig(width=w, height=h, wavelet_levels=levels, frames=n)
+    luts, params = cli._load_luts("neutral", levels, 2, 0.0)
+    _require(mh.init_distributed(f"127.0.0.1:{port}", hosts, rank)
+             == (rank, hosts), "process group")
+    try:
+        # a first, untimed round: a process's first CUDA work loads its
+        # context and modules, which the single-host walls do not include
+        mh.encode_video_multihost(f"{d}/in.raw", f"{d}/warm.enc", cfg, luts,
+                                  params, n, batch=batch, device=device)
+        mh.decode_video_multihost(f"{d}/warm.enc", f"{d}/warm.raw", cfg,
+                                  luts, params, batch=batch, device=device)
+        bpc_cuda.reset_launches()
+        enc = mh.encode_video_multihost(f"{d}/in.raw", f"{d}/mh.enc", cfg,
+                                        luts, params, n, batch=batch,
+                                        device=device)
+        enc_launches = bpc_cuda.ENCODE_LAUNCHES["cp2"]
+        dec = mh.decode_video_multihost(f"{d}/mh.enc", f"{d}/mh.raw", cfg,
+                                        luts, params, batch=batch,
+                                        device=device)
+        print("MULTIHOST " + json.dumps({
+            "rank": rank, "frames": enc.frames,
+            "encode_wall_s": enc.wall_s, "decode_wall_s": dec.wall_s,
+            "launches": {"encode": enc_launches,
+                         "decode": bpc_cuda.DECODE_LAUNCHES["cp2"]}}))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def sharded_phase(dev, tag: str, err: dict) -> dict:
+    """The distribution layer on the card (`dist/`), every shard on `dev`:
+    - `ShardedCodec` at 2048^2 wl=5 lossless on 2, 3 and 4 shards, 2048^2
+      wl=3 lossy and RGB 2048x2560 lossy (trained lossy LUT) on 2, and
+      1920x1080 wl=5 lossless on 4 (17 codeblock rows: 5/4/4/4): each
+      codestream equal to the unsharded card codestream, each decode to
+      the unsharded decode (lossless: to the input), the BPC launches
+      (counts reset just before the encode, read after it and after the
+      decode) one per codeblock shard and component, none of another
+      mode; the kernels on shard 0's codeblocks timed, with their bound;
+      on 2 shards, BIG_PICKS of them held to the plain coder;
+    - device encode / decode and the CLI round trip at 2048^2 wl=5,
+      unsharded and on 2 and 4 shards, in one call;
+    - the CLI's -sharded 2 round trip at 2048^2 wl=5: the unsharded CLI's
+      file, a bit-exact decode, 2 launches a direction;
+    - 1080p video, SHARDED_VIDEO frames, devices=2 against devices=1
+      (two turns): equal files and `_SIZE`, bit-exact decodes, one launch
+      per share and batch;
+    - multi-host: HOSTS processes in a gloo group on the card
+      (`multihost_worker`): the merged file equal to the single-host one,
+      the merged decode to the input, the `ScalingReport` efficiency
+      against the single-host walls.
+    Returns the kernels' sharded entries and the times."""
+    import numpy as np
+    import torch
+
+    from picsong_tpu_torch.core.header import CodecConfig
+    from picsong_tpu_torch.core.image_io import (mirror_pad, read_pgm,
+                                                 write_pgm)
+    from picsong_tpu_torch.dist.multihost import ScalingReport
+    from picsong_tpu_torch.dist.sharded import (ShardedCodec, placement,
+                                                shares)
+    from picsong_tpu_torch.engine import cli, video
+    from picsong_tpu_torch.engine.batch import BatchCodec
+    from picsong_tpu_torch.engine.pipeline import TorchCodec
+    from picsong_tpu_torch.entropy import bpc, bpc_cuda
+    from picsong_tpu_torch.tools import goldens
+
+    def read(path):
+        with open(path, "rb") as f:
+            return f.read()
+
+    def stat(samples):
+        return {"median_ms": statistics.median(samples),
+                "min_ms": min(samples), "max_ms": max(samples)}
+
+    def kernels_at(label, blocks, args, kw, picks=False):
+        """The cp2 kernels on these blocks: round trip, optionally
+        BIG_PICKS blocks against the plain coder, times and bound."""
+        s_k, z_k = bpc_cuda.encode_blocks(blocks, *args, **kw)
+        _require(torch.equal(bpc_cuda.decode_blocks(s_k, z_k, *args, **kw),
+                             blocks), f"{label}: kernels' round trip")
+        if picks:
+            idx = torch.linspace(0, blocks.shape[0] - 1, BIG_PICKS,
+                                 device=dev).long()
+            sub = (args[0], *(m[idx] for m in args[1:]))
+            s_p, z_p = bpc.encode_blocks_plain(blocks[idx], *sub, **kw)
+            e = max(int((s_p.long() - s_k[idx].long()).abs().max()),
+                    int((z_p.long() - z_k[idx].long()).abs().max()))
+            err["cp2"]["encode"] = max(err["cp2"]["encode"], e)
+            _require(e == 0, f"{label}: picked blocks, encode == plain")
+            o_p = bpc.decode_blocks_plain(s_k[idx], z_k[idx], *sub, **kw)
+            e = int((o_p.long() - blocks[idx].long()).abs().max())
+            err["cp2"]["decode"] = max(err["cp2"]["decode"], e)
+            _require(e == 0, f"{label}: picked blocks, plain decode == input")
+        bound, by = bpc_cuda.bound_ms(blocks)
+        return {"codeblocks": blocks.shape[0],
+                "encode_ms": kernel_ms(
+                    lambda: bpc_cuda.encode_blocks(blocks, *args, **kw)),
+                "decode_ms": kernel_ms(
+                    lambda: bpc_cuda.decode_blocks(s_k, z_k, *args, **kw)),
+                "bound_ms": bound, "bound_by": by}
+
+    def only_cp2(counts, want, what):
+        _require(counts == dict(dict.fromkeys(counts, 0), cp2=want),
+                 f"{what}: launches {counts}, want {want} of cp2 only")
+
+    out = {"workloads": [], "times": {}}
+    img = goldens.make_image(SIZE)
+    rgb = [goldens.make_image(RGB_H, seed=s, width=RGB_W) for s in (5, 6, 7)]
+    uw, uh, un = UNEVEN
+    uneven = goldens.make_frame(uh, uw, 0)
+    neutral = cli._load_luts("neutral", LEVELS, 2, 0.0)
+    lossy_luts = cli._load_luts("neutral", LOSSY_LEVELS, 2, 0.0)
+    rgb_luts = cli._load_luts("trained", LEVELS, 2, 0.0, lossy=True)
+    cfg = CodecConfig(width=SIZE, height=SIZE, wavelet_levels=LEVELS)
+    jobs = [(f"{SIZE}^2 wl={LEVELS} lossless", cfg, neutral, img, n)
+            for n in SHARDS]
+    jobs += [
+        (f"{SIZE}^2 wl={LOSSY_LEVELS} lossy", CodecConfig(
+            width=SIZE, height=SIZE, wavelet_levels=LOSSY_LEVELS,
+            is_lossy=True, qs=1.0), lossy_luts, img, 2),
+        (f"RGB {RGB_W}x{RGB_H} wl={LEVELS} lossy trained", CodecConfig(
+            width=RGB_W, height=RGB_H, wavelet_levels=LEVELS, is_rgb=True,
+            components=3, is_lossy=True, qs=1.0), rgb_luts, rgb, 2),
+        (f"{uw}x{uh} wl={LEVELS} lossless", CodecConfig(
+            width=uw, height=uh, wavelet_levels=LEVELS), neutral, uneven,
+         un)]
+    singles = {}
+    for name, c, (luts, params), pixels, n in jobs:
+        if name not in singles:
+            single = TorchCodec(c, luts, params, dev)
+            want = single.encode(pixels)
+            singles[name] = (want, single.decode(want))
+        want, back = singles[name]
+        codec = ShardedCodec(c, luts, params, [dev] * n)
+        n_comp = codec.n_components
+        label = f"sharded {name} x{n}"
+        bpc_cuda.reset_launches()
+        got = codec.encode(pixels)
+        enc = dict(bpc_cuda.ENCODE_LAUNCHES)
+        got_back = codec.decode(got)
+        dec = dict(bpc_cuda.DECODE_LAUNCHES)
+        only_cp2(enc, len(codec.blocks) * n_comp, f"{label} encode")
+        only_cp2(dec, len(codec.blocks) * n_comp, f"{label} decode")
+        _require(len(got) == len(want) and all(
+            np.array_equal(g, w) for g, w in zip(got, want)),
+            f"{label}: codestream == the unsharded card codestream")
+        planes = got_back if c.is_rgb else [got_back]
+        _require(all(np.array_equal(p, q) for p, q in zip(
+            planes, back if c.is_rgb else [back])),
+            f"{label}: decode == the unsharded decode")
+        if not c.is_lossy:
+            _require(all(np.array_equal(p, q) for p, q in zip(
+                planes, pixels if c.is_rgb else [pixels])),
+                f"{label}: decode bit-exact")
+        blocks = codec.tile_planes(codec.upload(pixels))
+        s0 = codec.blocks[0][0]
+        kw = dict(codec._kw, n_planes=codec._n_planes(
+            [b for comp in blocks for b in comp]))
+        k = kernels_at(label, blocks[0][0], codec._bpc_args(s0, 0), kw,
+                       picks=(n == 2 and not c.is_lossy))
+        out["workloads"].append({
+            "workload": f"{name}, {n} shards", "shards": n,
+            "launches": {"encode": enc["cp2"], "decode": dec["cp2"]}, **k})
+        print(f"{tag} {label} ({placement(codec.devices)}, rows "
+              f"{[r1 - r0 for r0, r1 in codec.rows]}, levels by shards "
+              f"{[len(sp) for sp in codec._plan]}): "
+              f"{sum(g.size for g in got)} shorts == the unsharded card "
+              f"codestream; decode == unsharded"
+              + ("" if c.is_lossy else " == input")
+              + f"; launches {enc['cp2']} / {dec['cp2']} (shards x "
+              f"components); shard 0: {k['codeblocks']} codeblocks, "
+              f"kernels {k['encode_ms']:.4f} / {k['decode_ms']:.4f} ms, "
+              f"bound {k['bound_ms']:.5f} ms ({k['bound_by']})")
+
+    # times at 2048^2 wl=5: unsharded, then 2 and 4 shards, in one call
+    tmp = tempfile.TemporaryDirectory()
+    src = os.path.join(tmp.name, "in.pgm")
+    write_pgm(src, img)
+    luts, params = neutral
+
+    def cli_pair(n):
+        enc = os.path.join(tmp.name, f"s{n}.enc")
+        dec = os.path.join(tmp.name, f"s{n}.pgm")
+        shard = ["-sharded", str(n)] if n > 1 else []
+        shard += ["--device", str(dev)]
+        _require(cli.main(["-cd", "0", "-i", src, "-o", enc, "-wl",
+                           str(LEVELS), "-LUTFolder", "neutral", *shard])
+                 == 0, f"CLI encode -sharded {n}")
+        _require(cli.main(["-cd", "1", "-i", enc, "-o", dec, "-LUTFolder",
+                           "neutral", *shard]) == 0,
+                 f"CLI decode -sharded {n}")
+        return enc, dec
+
+    bpc_cuda.reset_launches()
+    enc2, dec2 = cli_pair(2)
+    only_cp2(dict(bpc_cuda.ENCODE_LAUNCHES), 2, "CLI -sharded 2 encode")
+    only_cp2(dict(bpc_cuda.DECODE_LAUNCHES), 2, "CLI -sharded 2 decode")
+    enc1, _ = cli_pair(1)
+    _require(read(enc2) == read(enc1) and read(enc2 + "_SIZE")
+             == read(enc1 + "_SIZE"), "CLI -sharded 2 file == unsharded")
+    _require(np.array_equal(read_pgm(dec2), img),
+             "CLI -sharded 2 round trip bit-exact")
+    out["cli_launches"] = 2
+    print(f"{tag} CLI -sharded 2 {SIZE}^2 wl={LEVELS}: file == the "
+          "unsharded CLI file, round trip bit-exact, launches 2 / 2")
+    single = TorchCodec(cfg, luts, params, dev)
+    samples = [torch.from_numpy(img).to(dev)]
+    coded1, n_pl = single.encode_planes(samples)
+    dcoded1 = [(s_, z_, n_pl) for s_, z_ in coded1]
+    t = {"unsharded": {
+        "device_encode": host_ms(lambda: single.encode_planes(samples)),
+        "device_decode": host_ms(lambda: single.decode_planes(dcoded1)),
+        "cli_round_trip": host_ms(lambda: cli_pair(1))}}
+    for n in (2, 4):
+        codec = ShardedCodec(cfg, luts, params, [dev] * n)
+        up = codec.upload(img)
+        coded, n_pl = codec.encode_planes(up)
+        dcoded = [(shards, n_pl) for shards in coded]
+        t[f"{n} shards"] = {
+            "device_encode": host_ms(lambda: codec.encode_planes(up)),
+            "device_decode": host_ms(lambda: codec.decode_planes(dcoded)),
+            "cli_round_trip": host_ms(lambda: cli_pair(n))}
+    mp = SIZE * SIZE / 1e3
+    for k, v in t.items():
+        out["times"][k] = {m: stat(x) for m, x in v.items()}
+        print(f"{tag} {SIZE}^2 wl={LEVELS} {k}: " + ", ".join(
+            f"{m} median {statistics.median(x):.4f} ms (min {min(x):.4f}, "
+            f"max {max(x):.4f}; {mp / statistics.median(x):.1f} MPix/s)"
+            for m, x in v.items()) + f" over {ITERS}")
+    tmp.cleanup()
+
+    # 1080p video: devices=2 against devices=1, two turns
+    w, h, n, batch = SHARDED_VIDEO
+    tmp = tempfile.TemporaryDirectory()
+    d = tmp.name
+    raw = os.path.join(d, "in.raw")
+    with open(raw, "wb") as f:
+        for i in range(n):
+            f.write(goldens.make_frame(h, w, i).tobytes())
+    vcfg = CodecConfig(width=w, height=h, wavelet_levels=LEVELS, frames=n)
+    walls = {1: {"encode": [], "decode": []}, 2: {"encode": [], "decode": []}}
+    n_batches = -(-n // batch)
+    for turn in range(2):
+        for devices in ((1, 2) if turn == 0 else (2, 1)):
+            enc = os.path.join(d, f"v{devices}.enc")
+            dec = os.path.join(d, f"v{devices}.raw")
+            bpc_cuda.reset_launches()
+            st = video.encode_video(raw, enc, vcfg, luts, params, n,
+                                    batch=batch, devices=[dev] * devices)
+            only_cp2(dict(bpc_cuda.ENCODE_LAUNCHES), n_batches * devices,
+                     f"video devices={devices} encode")
+            sd = video.decode_video(enc, dec, vcfg, luts, params,
+                                    batch=batch, devices=[dev] * devices)
+            only_cp2(dict(bpc_cuda.DECODE_LAUNCHES), n_batches * devices,
+                     f"video devices={devices} decode")
+            _require(read(dec) == read(raw),
+                     f"video devices={devices}: decode bit-exact")
+            walls[devices]["encode"].append(st.wall_s)
+            walls[devices]["decode"].append(sd.wall_s)
+            print(f"{tag} video {w}x{h} {n} frames batch {batch} devices="
+                  f"{devices} turn {turn + 1}: encode {st.wall_s:.4f} s = "
+                  f"{n / st.wall_s:.2f} frames/s (compute "
+                  f"{st.compute_s:.4f} s), decode {sd.wall_s:.4f} s = "
+                  f"{n / sd.wall_s:.2f} frames/s; launches "
+                  f"{n_batches * devices} a direction")
+    v1, v2 = (os.path.join(d, f"v{k}.enc") for k in (1, 2))
+    _require(read(v1) == read(v2) and read(v1 + "_SIZE")
+             == read(v2 + "_SIZE"), "video devices=2 file == devices=1")
+    out["video"] = {str(k): v for k, v in walls.items()}
+    def frames(count):
+        """The first `count` frames, padded, on the card."""
+        return torch.from_numpy(np.stack([mirror_pad(
+            goldens.make_frame(h, w, i), bc.aw, bc.ah)
+            for i in range(count)])).to(dev)
+
+    share = batch // 2
+    bc = BatchCodec(vcfg, luts, params, share, dev)
+    (vblocks,), mx = bc.prep_batch(frames(share))
+    k = kernels_at("video share", vblocks, bc._bpc_args(0),
+                   dict(bc.codec._bpc_kw,
+                        n_planes=bpc.planes_for_magnitude(int(mx))))
+    out["workloads"].append({
+        "workload": f"video {w}x{h}, {n} frames, batch {batch}, 2 devices",
+        "shards": 2, "launches": {"encode": n_batches * 2,
+                                  "decode": n_batches * 2}, **k})
+
+    # multi-host: HOSTS processes on the card
+    port = _free_port()
+    script = os.path.abspath(__file__)
+    procs = [subprocess.Popen(
+        [sys.executable, script, "--multihost-worker", str(r), str(HOSTS),
+         str(port), d, str(dev), str(w), str(h), str(n), str(batch),
+         str(LEVELS)], cwd=os.path.dirname(script),
+        stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(HOSTS)]
+    reports = []
+    try:
+        for r, p in enumerate(procs):
+            text, _ = p.communicate(timeout=300)
+            _require(p.returncode == 0, f"multi-host rank {r} exited "
+                     f"{p.returncode}:\n{text[-3000:]}")
+            line = [x for x in text.splitlines()
+                    if x.startswith("MULTIHOST ")]
+            _require(len(line) == 1, f"multi-host rank {r} report")
+            reports.append(json.loads(line[0][len("MULTIHOST "):]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    mh_enc, mh_dec = os.path.join(d, "mh.enc"), os.path.join(d, "mh.raw")
+    _require(read(mh_enc) == read(v1) and read(mh_enc + "_SIZE")
+             == read(v1 + "_SIZE"), "multi-host merged file == single-host")
+    _require(read(mh_dec) == read(raw), "multi-host merged decode == input")
+    rep = {}
+    for direction in ("encode", "decode"):
+        sr = ScalingReport(
+            frames=n, num_hosts=HOSTS,
+            host_wall_s=[r[f"{direction}_wall_s"] for r in reports],
+            single_host_wall_s=min(walls[1][direction]))
+        rep[direction] = sr.as_dict()
+        print(f"{tag} multi-host {HOSTS} processes on one card, {direction}:"
+              f" host walls {sr.host_wall_s} s, single host "
+              f"{sr.single_host_wall_s:.4f} s, aggregate "
+              f"{sr.aggregate_fps:.2f} frames/s, efficiency "
+              f"{sr.efficiency:.4f}")
+    launches = {dr: sum(r["launches"][dr] for r in reports)
+                for dr in ("encode", "decode")}
+    if dev.type == "cuda":
+        # each host codes its slab in batches of min(batch, slab frames)
+        want = sum(-(-(b - a) // min(batch, b - a))
+                   for a, b in shares(n, HOSTS) if b > a)
+        _require(launches == {"encode": want, "decode": want},
+                 f"multi-host launches {launches}, want {want} a direction")
+    rep["launches"] = launches
+    out["multihost"] = rep
+    tmp.cleanup()
+    # the workers' launches code a batch of `batch` frames
+    bc = BatchCodec(vcfg, luts, params, batch, dev)
+    (vblocks,), mx = bc.prep_batch(frames(batch))
+    k = kernels_at("multi-host batch", vblocks, bc._bpc_args(0),
+                   dict(bc.codec._bpc_kw,
+                        n_planes=bpc.planes_for_magnitude(int(mx))))
+    out["workloads"].append({
+        "workload": f"multi-host video {w}x{h}, {n} frames, {HOSTS} "
+                    "processes", "shards": HOSTS, "launches": launches, **k})
+    print(f"{tag} multi-host: merged file == single-host, merged decode == "
+          f"input; launches {launches} over {HOSTS} processes")
+    return out
+
+
 def main() -> int:
+    if sys.argv[1:2] == ["--multihost-worker"]:
+        return multihost_worker(sys.argv[2:])
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -617,37 +1047,6 @@ def main() -> int:
 
     # ---- 6. times ----------------------------------------------------------
     mpix = SIZE * SIZE / 1e6
-
-    def device_ms(fn, iters=ITERS, warm=2, per=1):
-        """CUDA-event times of `fn`; with `per` > 1, of `per` back-to-back
-        calls divided by `per`, which keeps the wrapper's host time out of
-        a kernel's time."""
-        for _ in range(warm):
-            fn()
-        torch.cuda.synchronize()
-        out = []
-        for _ in range(iters):
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            for _ in range(per):
-                fn()
-            b.record()
-            torch.cuda.synchronize()
-            out.append(a.elapsed_time(b) / per)
-        return out
-
-    def host_ms(fn, iters=ITERS, warm=1):
-        for _ in range(warm):
-            fn()
-        out = []
-        for _ in range(iters):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            out.append((time.perf_counter() - t) * 1e3)
-        return out
 
     def report(name, samples, rate=True, mp=mpix):
         ms = statistics.median(samples)
@@ -1090,6 +1489,10 @@ def main() -> int:
     # and frame batch ------------------------------------------------------
     vid = video_phase(dev, tag, err)
 
+    # ---- 15. the distribution layer: sharded images, frame-parallel and
+    # multi-host video, every shard on the card ----------------------------
+    shd = sharded_phase(dev, tag, err)
+
     # each BPC kernel's bound at the main path's shapes: the same symbols
     # in every mode and direction
     bpc_bound, bpc_by = bpc_cuda.bound_ms(blocks)
@@ -1124,6 +1527,14 @@ def main() -> int:
                     "bound_ms": r["kernel"]["bound_ms"],
                     "bound_by": r["kernel"]["bound_by"]}
                     for name, r in vid.items()]
+                # the sharded workloads' own launches, at the shape of a
+                # launch of their first shard
+                entries[-1]["sharded"] = [{
+                    "workload": r["workload"], "shards": r["shards"],
+                    "codeblocks": r["codeblocks"],
+                    "launches": r["launches"][d], "ms": r[f"{d}_ms"],
+                    "bound_ms": r["bound_ms"], "bound_by": r["bound_by"]}
+                    for r in shd["workloads"]]
     for name, line in (("probe", 58), ("probe2", 54)):
         module = probe if name == "probe" else probe2
         bound, by = module.bound_ms(*(gpu(x) for x in module.inputs(0)))

@@ -28,7 +28,12 @@ Layer map (mirrors picsong_tpu):
                       probe.cu, probe2.cu)
   kernels.py          nvcc build of csrc/ into build/ and the ctypes binding
   engine/pipeline.py  TorchCodec: gray/RGB, lossless/lossy, 8-16 bit images
-  engine/cli.py       the reference-compatible command line
+  engine/batch.py     BatchCodec: B frames' codeblocks in one BPC launch
+  engine/video.py     the pipelined video engine (devices > 1: frame shares)
+  engine/cli.py       the reference-compatible command line (-sharded N)
+  dist/sharded.py     device placement, row-sharded ShardedCodec (explicit
+                      halo and tiling exchanges), FrameParallelCodec
+  dist/multihost.py   multi-host video slabs on a gloo process group
   tools/probe*.py     the probes' wrappers, plain versions, entry points
   obs/trace.py        stage timers with NVTX ranges
 

@@ -25,6 +25,9 @@ frames' (MSB, size) pairs and payloads are then contiguous, so
 `split_frames` cuts the downloaded batch into per-frame codestreams on the
 host, and `join_frames` glues per-frame codestreams into one for upload
 (the JAX package's `fuse_packed`/`split_packed` and `_assemble_frame`).
+A row-sharded image (`dist/sharded.py`) is the same with parts of unequal
+block counts: each shard packs its share of the codeblocks, and
+`join_frames` glues the shares into the image's codestream.
 """
 
 from __future__ import annotations
@@ -124,43 +127,63 @@ def unpack_streams(stream: torch.Tensor, n_blocks: int,
     return out, sizes
 
 
-def split_frames(shorts: np.ndarray, n_frames: int, n_blocks: int,
+def _counts(n_parts: int, n_blocks) -> np.ndarray:
+    """Block counts of `n_parts` parts: `n_blocks` each (an int), or the
+    sequence as given."""
+    if np.ndim(n_blocks) == 0:
+        return np.full(n_parts, int(n_blocks), dtype=np.int64)
+    counts = np.asarray(n_blocks, dtype=np.int64)
+    if counts.shape != (n_parts,):
+        raise ValueError(f"{counts.size} block counts for {n_parts} parts")
+    return counts
+
+
+def split_frames(shorts: np.ndarray, n_frames: int, n_blocks,
                  header: np.ndarray | None) -> list[np.ndarray]:
-    """The packed codestream of a batch of `n_frames` frames, `n_blocks`
-    codeblocks a frame, frame-major (uint16 shorts on the host) -> one
-    codestream per frame, each the shorts `pack_streams` gives for that
-    frame's blocks and `header`."""
-    n = n_frames * n_blocks
+    """The packed codestream of `n_frames` parts' blocks, part-major
+    (uint16 shorts on the host) -> one codestream per part, each the shorts
+    `pack_streams` gives for that part's blocks and `header`. `n_blocks` is
+    the block count of every part (the frames of a video batch), or one
+    count per part (the shares of a row-sharded image, some of them
+    empty)."""
+    counts = _counts(n_frames, n_blocks)
+    ends = np.concatenate([[0], np.cumsum(counts)])
+    n = int(ends[-1])
     sizes = block_fields(shorts, n)[1]
     pairs = shorts[HEADER_SHORTS:HEADER_SHORTS + 2 * n]
-    counts = (sizes - 1).reshape(n_frames, n_blocks).sum(axis=1)
-    starts = HEADER_SHORTS + 2 * n + np.concatenate([[0], np.cumsum(counts)])
+    words = np.concatenate([[0], np.cumsum(sizes - 1)])[ends]
+    starts = HEADER_SHORTS + 2 * n + words
     out = []
     for f in range(n_frames):
-        frame = np.full(stream_length(n_blocks, int(counts[f])), 0xFFFF,
-                        dtype=np.uint16)
+        k = int(counts[f])
+        frame = np.full(stream_length(k, int(words[f + 1] - words[f])),
+                        0xFFFF, dtype=np.uint16)
         if header is not None:
             frame[:HEADER_SHORTS] = header
-        body = HEADER_SHORTS + 2 * n_blocks
-        frame[HEADER_SHORTS:body] = pairs[2 * n_blocks * f:
-                                          2 * n_blocks * (f + 1)]
+        body = HEADER_SHORTS + 2 * k
+        frame[HEADER_SHORTS:body] = pairs[2 * ends[f]:2 * ends[f + 1]]
         frame[body:-1] = shorts[starts[f]:starts[f + 1]]
         out.append(frame)
     return out
 
 
-def join_frames(streams: list[np.ndarray], n_blocks: int) -> tuple[
+def join_frames(streams: list[np.ndarray], n_blocks,
+                header: np.ndarray | None = None) -> tuple[
         np.ndarray, np.ndarray, np.ndarray]:
-    """Per-frame codestreams of `n_blocks` codeblocks each (uint16 shorts)
-    -> (one codestream of all their blocks, frame-major, with a filler
-    header; the blocks' MSB words; their sizes): the input of one
-    `unpack_streams` for the whole batch."""
-    fields = [block_fields(s, n_blocks) for s in streams]
-    body = HEADER_SHORTS + 2 * n_blocks
-    pairs = [s[HEADER_SHORTS:body] for s in streams]
-    payloads = [s[body:body + int(z.sum()) - n_blocks]
-                for s, (_, z) in zip(streams, fields)]
+    """Per-part codestreams (uint16 shorts) of `n_blocks` codeblocks each,
+    or of one count per part as in `split_frames` -> (one codestream of all
+    their blocks, part-major, with `header` or a filler header; the blocks'
+    MSB words; their sizes): the input of one `unpack_streams` for a video
+    batch, or a row-sharded image's codestream."""
+    counts = _counts(len(streams), n_blocks)
+    fields = [block_fields(s, int(k)) for s, k in zip(streams, counts)]
+    pairs = [s[HEADER_SHORTS:HEADER_SHORTS + 2 * int(k)]
+             for s, k in zip(streams, counts)]
+    payloads = [s[HEADER_SHORTS + 2 * int(k):
+                  HEADER_SHORTS + 2 * int(k) + int(z.sum()) - int(k)]
+                for s, k, (_, z) in zip(streams, counts, fields)]
     filler = np.full(HEADER_SHORTS, 0xFFFF, dtype=np.uint16)
-    joined = np.concatenate([filler, *pairs, *payloads, filler[:1]])
+    head = filler if header is None else np.asarray(header, dtype=np.uint16)
+    joined = np.concatenate([head, *pairs, *payloads, filler[:1]])
     return (joined, np.concatenate([m for m, _ in fields]),
             np.concatenate([z for _, z in fields]))

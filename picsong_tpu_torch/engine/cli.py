@@ -6,9 +6,12 @@ every configuration `TorchCodec` covers (gray or planar RGB, lossless 5/3
 or lossy 9/7, up to 16 bits per sample, signed or unsigned, either
 endianness, -cp 2 or 3, any -k), and video mode (-video 1) for the same
 configurations on a planar RAW frame sequence, `-numberOfStreams` frames
-a batch (`engine/video.py`); sharded coding (-sharded N > 1) prints "not
-yet ported" and exits with status 2. One extra flag, `--device` (default
-`cuda`), picks the device the codec runs on.
+a batch (`engine/video.py`); `-sharded N` (N > 1) codes an image
+row-sharded over N devices (`dist/sharded.py::ShardedCodec`) and a video
+frame-parallel over N devices (`encode_video(devices=N)`), the shards
+placed by `make_devices` and the placement printed; the files are the
+unsharded ones, byte for byte. One extra flag, `--device` (default
+`cuda`), picks the device (type) the codec runs on.
 
   python -m picsong_tpu_torch.engine.cli -cd 0 -i in.pgm -o out.enc \
       -wl 5 -cp 2 -type 0 -video 0 -LUTFolder trained -k 0
@@ -24,6 +27,8 @@ yet ported" and exits with status 2. One extra flag, `--device` (default
       -xSize 1920 -ySize 1080 -video 1 -frames 100 -numberOfStreams 8
   python -m picsong_tpu_torch.engine.cli -cd 1 -i video.enc -o dec.raw \
       -video 1 -numberOfStreams 8
+  python -m picsong_tpu_torch.engine.cli -cd 0 -i in.pgm -o out.enc \
+      -wl 5 -sharded 2
 """
 
 from __future__ import annotations
@@ -40,6 +45,7 @@ from ..core.image_io import (append_raw_frame, read_codestream,
                              read_sizes, sample_dtype, write_codestream,
                              write_pgm)
 from ..core.lut import LUTParams, load_luts, neutral_lut
+from ..dist.sharded import ShardedCodec, make_devices, placement
 from .pipeline import TorchCodec
 from .video import decode_video, encode_video
 
@@ -63,15 +69,13 @@ HELP = """PICSONG codec, PyTorch/CUDA port. Options (reference-compatible):
   -endianess [0|1]   sample endianness
   -signedOrUnsigned [0|1]
   -numberOfStreams N video frame batch size (frames a launch, default 8)
-  -sharded N         shard coding over N devices (not ported yet)
+  -sharded N         shard coding over N devices (image: rows; video:
+                     frames)
   -LUTFolder PATH    LUT folder (or 'neutral' / 'trained': the lossless
                      or, with -type 1, the lossy trained tables)
   -k K               complexity-scalability factor (0 = off)
   --device DEV       torch device to run on (default cuda)
 """
-
-NOT_PORTED = 2
-
 
 def _parse_args(argv: list[str]) -> dict:
     opts = {}
@@ -104,9 +108,23 @@ def _load_luts(folder: str, wavelet_levels: int, coding_passes: int,
     return load_luts(folder, wavelet_levels, coding_passes, k_factor)
 
 
-def _not_ported(what: str) -> int:
-    print(f"not yet ported to picsong_tpu_torch: {what}")
-    return NOT_PORTED
+def _shard_devices(opts: dict, device: str):
+    """-sharded N > 1: the N shards' devices, printed; else None (one
+    device)."""
+    n = int(opts.get("sharded", 0))
+    if n <= 1:
+        return None
+    devices = make_devices(n, device)
+    print(placement(devices))
+    return devices
+
+
+def _make_image_codec(cfg: CodecConfig, luts, params, devices, device):
+    """TorchCodec on one device, or ShardedCodec over the -sharded
+    devices."""
+    if devices is None:
+        return TorchCodec(cfg, luts, params, device)
+    return ShardedCodec(cfg, luts, params, devices)
 
 
 def _read_encode_input(path: str, cfg: CodecConfig):
@@ -159,8 +177,6 @@ def main(argv: list[str] | None = None) -> int:
     device = opts.get("device", "cuda")
     streams_depth = int(opts.get("numberOfStreams", 8))
     is_video = int(opts.get("video", 0)) == 1
-    if int(opts.get("sharded", 0)) > 1:
-        return _not_ported("sharded coding (ROADMAP queue 1 item 13)")
 
     if cd == 0:
         wl = int(opts.get("wl", 5))
@@ -198,10 +214,12 @@ def main(argv: list[str] | None = None) -> int:
                           endianess=endianess, bps=bps, is_signed=is_signed,
                           frames=frames, k_factor=k)
         luts, params = _load_luts(opts.get("LUTFolder", ""), wl, cp, k, lossy)
+        devices = _shard_devices(opts, device)
         if is_video:
             stats = encode_video(input_file, output_file, cfg, luts, params,
                                  frames, batch=max(streams_depth, 1),
-                                 progress=True, device=device)
+                                 progress=True, devices=devices or 1,
+                                 device=device)
             print(f"Encoded {stats.frames} frames in {stats.wall_s:.3f}s "
                   f"(batch {stats.batch}, compute {stats.compute_s:.3f}s, "
                   f"reader stall {stats.reader_stall_s:.3f}s, writer stall "
@@ -209,7 +227,7 @@ def main(argv: list[str] | None = None) -> int:
                   f"{stats.writer_busy_s:.3f}s)")
         else:
             pixels = _read_encode_input(input_file, cfg)
-            codec = TorchCodec(cfg, luts, params, device)
+            codec = _make_image_codec(cfg, luts, params, devices, device)
             streams = codec.encode(pixels)
             for j, s in enumerate(streams):
                 write_codestream(output_file, s, first=(j == 0))
@@ -218,14 +236,16 @@ def main(argv: list[str] | None = None) -> int:
         luts, params = _load_luts(opts.get("LUTFolder", ""),
                                   cfg.wavelet_levels, cfg.coding_passes,
                                   cfg.k_factor, cfg.is_lossy)
+        devices = _shard_devices(opts, device)
         if is_video:
             stats = decode_video(input_file, output_file, cfg, luts, params,
                                  batch=max(streams_depth, 1), progress=True,
-                                 device=device)
+                                 devices=devices or 1, device=device)
             print(f"Decoded {stats.frames} frames in {stats.wall_s:.3f}s "
                   f"(compute {stats.compute_s:.3f}s)")
         else:
-            out = TorchCodec(cfg, luts, params, device).decode(
+            out = _make_image_codec(cfg, luts, params, devices,
+                                    device).decode(
                 _read_codestreams(input_file))
             _write_decoded(output_file, out, cfg)
     else:

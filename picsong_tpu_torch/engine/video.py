@@ -33,6 +33,18 @@ per component and unpacks it on the card.
 On the CPU (device="cpu") the same loop runs with the plain coder and no
 streams, events or pinned memory.
 
+With `devices` > 1 (frame data parallelism, the JAX engine's
+`FrameParallelCodec` mesh) the batch is rounded up to a multiple of the
+device count and each batch's frames are split into that many contiguous
+shares, each coded by its own `BatchCodec` on its own device
+(`dist/sharded.py::FrameParallelCodec`, placed by `make_devices`), with
+one BPC launch per component and share. The roles stay the same: the
+compute loop enqueues every share's work on its device's compute stream,
+the batch's bitplane count is the max over the shares' maxima, the
+downloader packs each share on its own device's copy stream, and the
+writer cuts every share's frames in frame order, so the file is the one
+`devices=1` writes.
+
 Stage timers keep the reference's printed metrics (CodingEngine.cu:258,
 495, 1049): reader / writer stall = time the compute loop was blocked on
 that side; compute = the compute loop's own time (its wait for the
@@ -58,8 +70,8 @@ from ..core.header import CodecConfig, pack_header
 from ..core.image_io import (append_raw_frame, mirror_pad, read_codestream,
                              read_raw_frame, read_sizes, sample_dtype,
                              write_codestream)
+from ..dist.sharded import FrameParallelCodec, make_devices
 from ..entropy import bpc
-from .batch import BatchCodec
 
 # device memory that batches in flight may hold
 _INFLIGHT_BYTES = int(2e9)
@@ -250,11 +262,16 @@ def _torch_dtype(dtype: np.dtype) -> torch.dtype:
     return torch.from_numpy(np.empty(0, dtype.newbyteorder("="))).dtype
 
 
-def _no_devices(devices: int) -> None:
-    if devices > 1:
-        raise NotImplementedError(
-            "frame data parallelism over several devices is not ported yet "
-            "(ROADMAP queue 1 item 13)")
+def _shares(cfg: CodecConfig, luts, params, batch: int, devices,
+            device) -> tuple[FrameParallelCodec, list]:
+    """The frame-parallel codec of a batch rounded up to a multiple of the
+    device count, and per share (its BatchCodec, its `_Device`, its first
+    frame in the batch)."""
+    devs = make_devices(devices, device)
+    batch = -(-batch // len(devs)) * len(devs)
+    fp = FrameParallelCodec(cfg, luts, params, devs, batch)
+    return fp, [(bc, _Device(bc.device), j * fp.share)
+                for j, bc in enumerate(fp.codecs)]
 
 
 # --------------------------------------------------------------------------
@@ -264,36 +281,38 @@ def _no_devices(devices: int) -> None:
 def encode_video(input_path: str, output_path: str, cfg: CodecConfig,
                  luts, params, frames: int, batch: int = 8,
                  progress: bool = False, frame_offset: int = 0,
-                 devices: int = 1, device="cuda") -> VideoStats:
+                 devices=1, device="cuda") -> VideoStats:
     """Encode a planar RAW video (grayscale or RGB) frame sequence.
 
     frame_offset encodes frames [frame_offset, frame_offset + frames) of
-    the input, the per-host slab window for multi-host striping."""
-    _no_devices(devices)
-    batch = max(1, min(batch, frames))
-    codec = BatchCodec(cfg, luts, params, batch, device)
-    dev = _Device(codec.device)
+    the input, the per-host slab window for multi-host striping. devices
+    (a count, or a sequence of devices; `dist/sharded.py::make_devices`)
+    splits each batch's frames over that many devices."""
+    fp, shares = _shares(cfg, luts, params, max(1, min(batch, frames)),
+                         devices, device)
+    batch, share = fp.batch, fp.share
     header = pack_header(cfg)
     stats = VideoStats(batch=batch)
     t0 = time.perf_counter()
     n_comp = 3 if cfg.is_rgb else 1
     n_batches = -(-frames // batch)
-    ncb_b = batch * codec.ncb
-    # a batch in flight holds its int32 stream buffers on the device
+    ncb_s = share * fp.ncb
+    # a batch in flight holds its int32 stream buffers on the devices
     max_inflight = max(1, _INFLIGHT_BYTES
-                       // (ncb_b * spec.CBLOCK_SIZE * 4 * n_comp))
+                       // (batch * fp.ncb * spec.CBLOCK_SIZE * 4 * n_comp))
 
     dtype = sample_dtype(cfg.bps, cfg.endianess, cfg.is_signed)
-    shape = ((batch, 3, codec.ah, codec.aw) if cfg.is_rgb
-             else (batch, codec.ah, codec.aw))
+    shape = ((batch, 3, fp.ah, fp.aw) if cfg.is_rgb
+             else (batch, fp.ah, fp.aw))
+    first = shares[0][1]
 
     def read_plane(i):
         return mirror_pad(read_raw_frame(input_path, cfg.width, cfg.height, i,
-                                         dtype), codec.aw, codec.ah)
+                                         dtype), fp.aw, fp.ah)
 
     def fetch_batch(bi):
-        with dev.on():
-            buf = dev.host(shape, _torch_dtype(dtype))
+        with first.on():
+            buf = first.host(shape, _torch_dtype(dtype))
         host = buf.numpy()
         for j in range(batch):
             i = min(bi * batch + j, frames - 1) + frame_offset  # tail: repeat
@@ -305,10 +324,11 @@ def encode_video(input_path: str, output_path: str, cfg: CodecConfig,
         return buf
 
     def write_batch(bi, comp_shorts):
+        """comp_shorts: per component, each share's packed shorts."""
         nreal = min(frames - bi * batch, batch)
-        per_comp = [pack.split_frames(s, batch, codec.ncb,
-                                      header if c == 0 else None)
-                    for c, s in enumerate(comp_shorts)]
+        per_comp = [[f for s in parts for f in pack.split_frames(
+                        s, share, fp.ncb, header if c == 0 else None)]
+                    for c, parts in enumerate(comp_shorts)]
         for f in range(nreal):
             for c in range(n_comp):
                 write_codestream(output_path, per_comp[c][f],
@@ -317,55 +337,72 @@ def encode_video(input_path: str, output_path: str, cfg: CodecConfig,
         if progress:
             print(f"\rframe {stats.frames}/{frames}", end="", flush=True)
 
-    def download(bi, coded, payloads, done, n_planes):
+    def download(bi, launched, n_planes):
+        """Each share's pack and download on its copy stream, once its
+        coder's event has completed."""
         td = time.perf_counter()
-        dev.wait(done)
-        with dev.on(dev.copy):
-            host = [dev.download(pack.pack_streams(s, z, None, payload=p))
-                    for (s, z), p in zip(coded, payloads.tolist())]
-            dev.wait(dev.event())
-        shorts = [h.numpy().view(np.uint16) for h in host]
-        for s in shorts:
-            bpc.check_planes_bound(*pack.block_fields(s, ncb_b), n_planes)
+        comp_shorts = [[] for _ in range(n_comp)]
+        for (_, dev, _), (coded, payloads, done) in zip(shares, launched):
+            dev.wait(done)
+            with dev.on(dev.copy):
+                host = [dev.download(pack.pack_streams(s, z, None, payload=p))
+                        for (s, z), p in zip(coded, payloads.tolist())]
+                dev.wait(dev.event())
+            for c, h in enumerate(host):
+                shorts = h.numpy().view(np.uint16)
+                bpc.check_planes_bound(*pack.block_fields(shorts, ncb_s),
+                                       n_planes)
+                comp_shorts[c].append(shorts)
         stats.download_s += time.perf_counter() - td
-        writer.put(bi, shorts)
+        writer.put(bi, comp_shorts)
 
-    def launch(bi, blocks, max_mag, ready):
-        """Batch bi's coder, once its coefficient maximum is on the host."""
-        dev.wait(ready)
-        n_planes = bpc.planes_for_magnitude(int(max_mag))
-        coded = codec.encode_blocks(blocks, n_planes)
-        payloads = dev.download(torch.stack(
-            [z.sum(dtype=torch.int64) for _, z in coded]) - ncb_b)
+    def launch(bi, staged):
+        """Batch bi's coders, once the coefficient maxima of all its shares
+        are on the host: one bitplane count for the batch."""
+        for _, _, ready in staged:
+            first.wait(ready)
+        n_planes = bpc.planes_for_magnitude(max(int(m) for _, m, _ in staged))
+        launched = []
+        for (bc, dev, _), (blocks, _, _) in zip(shares, staged):
+            with dev.on(dev.compute):
+                coded = bc.encode_blocks(blocks, n_planes)
+                payloads = dev.download(torch.stack(
+                    [z.sum(dtype=torch.int64) for _, z in coded]) - ncb_s)
+                launched.append((coded, payloads, dev.event()))
         stats.n_planes = max(stats.n_planes, n_planes)
         stats.batches += 1
-        return bi, coded, payloads, dev.event(), n_planes
+        return bi, launched, n_planes
 
     writer = _Writer(write_batch, depth=_QUEUE_DEPTH)
     downloader = _Writer(download, depth=max_inflight)
     reader = _Prefetcher(fetch_batch, n_batches, _QUEUE_DEPTH)
     try:
-        with dev.on(dev.compute):
-            previous = None
-            for bi in range(n_batches + 1):
-                staged = None
-                if bi < n_batches:
-                    tr = time.perf_counter()
-                    _, host = reader.get()
-                    stats.reader_stall_s += time.perf_counter() - tr
-                tc = time.perf_counter()
-                if bi < n_batches:
-                    # enqueue batch bi first, so that the card has its DWT
-                    # to run while the host waits for batch bi-1's maximum
-                    blocks, max_mag = codec.prep_batch(dev.upload(host))
-                    staged = (bi, blocks, dev.download(max_mag), dev.event())
-                launched = launch(*previous) if previous else None
-                previous = staged
-                stats.compute_s += time.perf_counter() - tc
-                if launched is not None:
-                    tw = time.perf_counter()
-                    downloader.put(*launched)
-                    stats.writer_stall_s += time.perf_counter() - tw
+        previous = None
+        for bi in range(n_batches + 1):
+            staged = None
+            if bi < n_batches:
+                tr = time.perf_counter()
+                _, host = reader.get()
+                stats.reader_stall_s += time.perf_counter() - tr
+            tc = time.perf_counter()
+            if bi < n_batches:
+                # enqueue batch bi first, so that the card has its DWT to
+                # run while the host waits for batch bi-1's maxima
+                staged = []
+                for bc, dev, lo in shares:
+                    with dev.on(dev.compute):
+                        blocks, max_mag = bc.prep_batch(
+                            dev.upload(host[lo:lo + share]))
+                        staged.append((blocks, dev.download(max_mag),
+                                       dev.event()))
+                staged = (bi, staged)
+            launched = launch(*previous) if previous else None
+            previous = staged
+            stats.compute_s += time.perf_counter() - tc
+            if launched is not None:
+                tw = time.perf_counter()
+                downloader.put(*launched)
+                stats.writer_stall_s += time.perf_counter() - tw
         downloader.join()
         writer.join()
     finally:
@@ -387,15 +424,14 @@ def encode_video(input_path: str, output_path: str, cfg: CodecConfig,
 
 def decode_video(input_path: str, output_path: str, cfg: CodecConfig,
                  luts, params, batch: int = 8, progress: bool = False,
-                 devices: int = 1, frame_offset: int = 0,
+                 devices=1, frame_offset: int = 0,
                  frames: int | None = None, device="cuda") -> VideoStats:
     """Decode an appended-codestream video file back to planar RAW.
 
     frame_offset/frames select a window of the video: the `_SIZE`
     sidecar's prefix offsets give random access to any frame (the
     reference's resume-at-frame-i analogue, IOManager.ipp:176-208,
-    DecodingEngine.cu:257-283)."""
-    _no_devices(devices)
+    DecodingEngine.cu:257-283). devices as in `encode_video`."""
     all_sizes = read_sizes(input_path)
     n_comp = 3 if cfg.is_rgb else 1
     total_frames = len(all_sizes) // n_comp
@@ -406,36 +442,41 @@ def decode_video(input_path: str, output_path: str, cfg: CodecConfig,
     sizes = all_sizes[lo:(frame_offset + frames) * n_comp]
     offsets = all_offsets[lo:]          # absolute short offsets, local index
     n_frames = frames
-    batch = max(1, min(batch, n_frames))
-    codec = BatchCodec(cfg, luts, params, batch, device)
-    dev = _Device(codec.device)
+    fp, shares = _shares(cfg, luts, params, max(1, min(batch, n_frames)),
+                         devices, device)
+    batch, share = fp.batch, fp.share
     stats = VideoStats(batch=batch)
     t0 = time.perf_counter()
     n_batches = -(-n_frames // batch)
-    ncb_b = batch * codec.ncb
+    ncb_s = share * fp.ncb
     dtype = sample_dtype(cfg.bps, cfg.endianess, cfg.is_signed)
-    # a batch in flight holds its decoded samples on the device
-    max_inflight = max(1, _INFLIGHT_BYTES // (batch * codec.ah * codec.aw
+    # a batch in flight holds its decoded samples on the devices
+    max_inflight = max(1, _INFLIGHT_BYTES // (batch * fp.ah * fp.aw
                                               * n_comp * dtype.itemsize))
+    first = shares[0][1]
 
     def fetch_batch(bi):
-        """Read B frames' codestreams -> per component (the joined
-        codestream in pinned memory, its payload length), and the batch's
-        bitplane count."""
+        """Read B frames' codestreams -> per component and share (the
+        share's joined codestream in pinned memory, its payload length),
+        and the batch's bitplane count."""
         comps, fields = [], []
         for c in range(n_comp):
-            streams = []
-            for j in range(batch):
-                f = min(bi * batch + j, n_frames - 1)  # tail: repeat the last
-                k = f * n_comp + c
-                streams.append(read_codestream(input_path, int(offsets[k]),
-                                               int(sizes[k])))
-            joined, msb, z = pack.join_frames(streams, codec.ncb)
-            with dev.on():
-                buf = dev.host(joined.shape, torch.int16)
-            buf.numpy()[:] = joined.view(np.int16)
-            comps.append((buf, int(z.sum()) - ncb_b))
-            fields.append((msb, z))
+            parts = []
+            for _, _, j0 in shares:
+                streams = []
+                for j in range(j0, j0 + share):
+                    f = min(bi * batch + j, n_frames - 1)  # tail: the last
+                    k = f * n_comp + c
+                    streams.append(read_codestream(input_path,
+                                                   int(offsets[k]),
+                                                   int(sizes[k])))
+                joined, msb, z = pack.join_frames(streams, fp.ncb)
+                with first.on():
+                    buf = first.host(joined.shape, torch.int16)
+                buf.numpy()[:] = joined.view(np.int16)
+                parts.append((buf, int(z.sum()) - ncb_s))
+                fields.append((msb, z))
+            comps.append(parts)
         n_planes = max(bpc.planes_for_streams(m, z) for m, z in fields)
         return comps, n_planes
 
@@ -453,34 +494,41 @@ def decode_video(input_path: str, output_path: str, cfg: CodecConfig,
         if progress:
             print(f"\rframe {stats.frames}/{n_frames}", end="", flush=True)
 
-    def download(bi, planes, done):
+    def download(bi, decoded):
+        """Each share's samples to the host on its copy stream, once its
+        decode's event has completed; the shares in frame order."""
         td = time.perf_counter()
-        dev.wait(done)
-        with dev.on(dev.copy):
-            host = dev.download(planes)
-            dev.wait(dev.event())
+        host = []
+        for (_, dev, _), (planes, done) in zip(shares, decoded):
+            dev.wait(done)
+            with dev.on(dev.copy):
+                host.append(dev.download(planes))
+                dev.wait(dev.event())
         stats.download_s += time.perf_counter() - td
-        writer.put(bi, host.numpy())
+        writer.put(bi, np.concatenate([h.numpy() for h in host]))
 
     writer = _Writer(write_batch, depth=_QUEUE_DEPTH)
     downloader = _Writer(download, depth=max_inflight)
     try:
-        with dev.on(dev.compute):
-            for bi in range(n_batches):
-                tr = time.perf_counter()
-                _, (comps, n_planes) = reader.get()
-                stats.reader_stall_s += time.perf_counter() - tr
-                tc = time.perf_counter()
-                coded = [pack.unpack_streams(dev.upload(buf), ncb_b, payload)
-                         for buf, payload in comps]
-                planes = codec.decode_batch(coded, n_planes)
-                done = dev.event()
-                stats.compute_s += time.perf_counter() - tc
-                stats.batches += 1
-                stats.n_planes = max(stats.n_planes, n_planes)
-                tw = time.perf_counter()
-                downloader.put(bi, planes, done)
-                stats.writer_stall_s += time.perf_counter() - tw
+        for bi in range(n_batches):
+            tr = time.perf_counter()
+            _, (comps, n_planes) = reader.get()
+            stats.reader_stall_s += time.perf_counter() - tr
+            tc = time.perf_counter()
+            decoded = []
+            for j, (bc, dev, _) in enumerate(shares):
+                with dev.on(dev.compute):
+                    coded = [pack.unpack_streams(dev.upload(buf), ncb_s,
+                                                 payload)
+                             for buf, payload in (c[j] for c in comps)]
+                    decoded.append((bc.decode_batch(coded, n_planes),
+                                    dev.event()))
+            stats.compute_s += time.perf_counter() - tc
+            stats.batches += 1
+            stats.n_planes = max(stats.n_planes, n_planes)
+            tw = time.perf_counter()
+            downloader.put(bi, decoded)
+            stats.writer_stall_s += time.perf_counter() - tw
         downloader.join()
         writer.join()
     finally:

@@ -6,7 +6,8 @@ results of `picsong_tpu.entropy.bpc_jax.encode_blocks` / `decode_blocks`,
 as torch tensors on the inputs' device, in every mode: cp=2, cp=3, and
 cp=2 with complexity scalability (`has_k`; k is ignored with cp=3, as
 there). On CUDA they launch the mode's variant of `csrc/bpc_encode.cu` /
-`csrc/bpc_decode.cu` on the current stream without synchronising; there
+`csrc/bpc_decode.cu` on the current stream of the inputs' device (under
+that device, whichever device is current) without synchronising; there
 is no path from a CUDA tensor to the plain version.
 
 `ENCODE_LAUNCHES` / `DECODE_LAUNCHES` count kernel launches by mode
@@ -114,8 +115,12 @@ def _meta_pointers(n: int, lut, meta, n_planes: int) -> list[int]:
     return [t.data_ptr() for t in meta]
 
 
-def _stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
+def _stream(device: torch.device) -> int:
+    """The current stream of `device`, which is not the current device's
+    when the caller works on another card; launch under
+    `torch.cuda.device(device)` so that the stream and the pointers belong
+    to the device the runtime launches on."""
+    return torch.cuda.current_stream(device).cuda_stream
 
 
 def encode_blocks(blocks, lut, ref_b, sig_b, sign_b, cp_sig_b, cp_sign_b,
@@ -140,10 +145,12 @@ def encode_blocks(blocks, lut, ref_b, sig_b, sign_b, cp_sig_b, cp_sign_b,
     sizes = torch.empty(n, dtype=torch.int32, device=blocks.device)
     if n == 0:
         return streams, sizes
-    rc = lib.picsong_bpc_encode(
-        blocks.data_ptr(), lut.data_ptr(), lut.numel(), *ptrs, n, n_planes,
-        params.mult_precision, params.stride_per_group(wavelet_levels),
-        MODES[mode], streams.data_ptr(), sizes.data_ptr(), _stream())
+    with torch.cuda.device(blocks.device):
+        rc = lib.picsong_bpc_encode(
+            blocks.data_ptr(), lut.data_ptr(), lut.numel(), *ptrs, n,
+            n_planes, params.mult_precision,
+            params.stride_per_group(wavelet_levels), MODES[mode],
+            streams.data_ptr(), sizes.data_ptr(), _stream(blocks.device))
     ENCODE_LAUNCHES[mode] += 1
     kernels.check(lib, rc, f"bpc_encode {mode} launch")
     return streams, sizes
@@ -170,11 +177,12 @@ def decode_blocks(streams, sizes, lut, ref_b, sig_b, sign_b, cp_sig_b,
                       dtype=torch.int32, device=streams.device)
     if n == 0:
         return out
-    rc = lib.picsong_bpc_decode(
-        streams.data_ptr(), sizes.data_ptr(), lut.data_ptr(), lut.numel(),
-        *ptrs, n, n_planes, params.mult_precision,
-        params.stride_per_group(wavelet_levels), MODES[mode], out.data_ptr(),
-        _stream())
+    with torch.cuda.device(streams.device):
+        rc = lib.picsong_bpc_decode(
+            streams.data_ptr(), sizes.data_ptr(), lut.data_ptr(), lut.numel(),
+            *ptrs, n, n_planes, params.mult_precision,
+            params.stride_per_group(wavelet_levels), MODES[mode],
+            out.data_ptr(), _stream(streams.device))
     DECODE_LAUNCHES[mode] += 1
     kernels.check(lib, rc, f"bpc_decode {mode} launch")
     return out

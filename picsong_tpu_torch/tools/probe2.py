@@ -110,8 +110,12 @@ def launch(tape: torch.Tensor, amt: torch.Tensor) -> torch.Tensor:
     global LAUNCHES
     lib = kernels.library()
     out = torch.empty((ROWS, C), dtype=torch.int32, device=tape.device)
-    rc = lib.picsong_probe2(tape.data_ptr(), amt.data_ptr(), out.data_ptr(),
-                            torch.cuda.current_stream().cuda_stream)
+    # on the tensors' device and its current stream, whichever device is
+    # current
+    with torch.cuda.device(tape.device):
+        stream = torch.cuda.current_stream(tape.device).cuda_stream
+        rc = lib.picsong_probe2(tape.data_ptr(), amt.data_ptr(),
+                                out.data_ptr(), stream)
     LAUNCHES += 1
     kernels.check(lib, rc, "probe2 launch")
     return out

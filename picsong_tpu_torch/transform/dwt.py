@@ -146,19 +146,51 @@ def _inv97_h(s: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
     return _merge_l(even, odd)
 
 
-def _fwd_level(plane: torch.Tensor, lossy: bool):
-    fwd_v, fwd_h = (_fwd97, _fwd97_h) if lossy else (_fwd53, _fwd53_h)
-    lo_v, hi_v = fwd_v(plane)                     # vertical first
-    ll, hl = fwd_h(lo_v)                          # then horizontal
+# One level, in the steps a row-sharded plane needs apart: the vertical
+# lifting reads neighbouring rows (`_nxt` / `_prv`), so a shard runs it on
+# its rows plus a halo of its neighbours' and keeps its interior; the
+# horizontal lifting and the (de)quantization stay within a row.
+# `dist/sharded.py` calls these steps; `dwt_forward` / `dwt_reverse` chain
+# them over the whole plane.
+
+def lift_vertical(plane: torch.Tensor, lossy: bool):
+    """Vertical analysis: (..., H, W) -> (low, high) rows, (..., H/2, W)
+    each."""
+    return (_fwd97 if lossy else _fwd53)(plane)
+
+
+def lift_horizontal(lo_v: torch.Tensor, hi_v: torch.Tensor, lossy: bool):
+    """Horizontal analysis of the vertical pass's halves -> (ll, hl, lh,
+    hh)."""
+    fwd_h = _fwd97_h if lossy else _fwd53_h
+    ll, hl = fwd_h(lo_v)
     lh, hh = fwd_h(hi_v)
     return ll, hl, lh, hh
 
 
-def _inv_level(ll, hl, lh, hh, lossy: bool) -> torch.Tensor:
-    inv_v, inv_h = (_inv97, _inv97_h) if lossy else (_inv53, _inv53_h)
-    lo_v = inv_h(ll, hl)                          # horizontal inverse first
-    hi_v = inv_h(lh, hh)
-    return inv_v(lo_v, hi_v)
+def quantize_level(ll, hl, lh, hh, level: int, levels: int, qs: float):
+    """Each 9/7 subband of `level` times its gain * qs (the final LL too,
+    the intermediate LL not; writeSubbands, DWTGenerator.cu:403-433)."""
+    qs32 = np.float32(qs)
+    g = spec.WAVELET_QSTEPS[level]
+    hl = hl * float(g[spec.QS_HL] * qs32)
+    lh = lh * float(g[spec.QS_LH] * qs32)
+    hh = hh * float(g[spec.QS_HH] * qs32)
+    if level == levels - 1:
+        ll = ll * float(g[spec.QS_LL] * qs32)
+    return ll, hl, lh, hh
+
+
+def unlift_horizontal(ll, hl, lh, hh, lossy: bool):
+    """Horizontal synthesis -> the (low, high) rows of the vertical pass."""
+    inv_h = _inv97_h if lossy else _inv53_h
+    return inv_h(ll, hl), inv_h(lh, hh)
+
+
+def unlift_vertical(lo_v: torch.Tensor, hi_v: torch.Tensor,
+                    lossy: bool) -> torch.Tensor:
+    """Vertical synthesis: (low, high) rows -> (..., 2 * H, W)."""
+    return (_inv97 if lossy else _inv53)(lo_v, hi_v)
 
 
 def _check(shape, levels: int) -> None:
@@ -181,17 +213,11 @@ def dwt_forward(plane: torch.Tensor, levels: int, lossy: bool = False,
     if lossy and plane.dtype != torch.float32:
         raise TypeError(f"the 9/7 DWT takes a float32 plane, got {plane.dtype}")
     cur = plane if lossy else plane.to(torch.int32)
-    qs32 = np.float32(qs)
     quads = []
     for level in range(levels):
-        ll, hl, lh, hh = _fwd_level(cur, lossy)
+        ll, hl, lh, hh = lift_horizontal(*lift_vertical(cur, lossy), lossy)
         if lossy:
-            g = spec.WAVELET_QSTEPS[level]
-            hl = hl * float(g[spec.QS_HL] * qs32)
-            lh = lh * float(g[spec.QS_LH] * qs32)
-            hh = hh * float(g[spec.QS_HH] * qs32)
-            if level == levels - 1:
-                ll = ll * float(g[spec.QS_LL] * qs32)
+            ll, hl, lh, hh = quantize_level(ll, hl, lh, hh, level, levels, qs)
         quads.append((hl, lh, hh))
         cur = ll
     out = cur
@@ -201,12 +227,15 @@ def dwt_forward(plane: torch.Tensor, levels: int, lossy: bool = False,
     return out
 
 
-def _dequant(q: torch.Tensor, gain, qs32) -> torch.Tensor:
-    """Midpoint dequantization, (|q| + 0.5) * sign / gain / qs for q != 0
+def dequantize(q: torch.Tensor, level: int, band: int,
+               qs: float) -> torch.Tensor:
+    """Midpoint dequantization of a subband of `level` (`band` one of
+    spec.QS_LL/HL/LH/HH), (|q| + 0.5) * sign / gain / qs for q != 0
     (readSubbandsLossy, DWTGenerator.cu:513-542)."""
     q = q.to(torch.int32)
     mag = q.abs().to(torch.float32) + float(spec.RECONSTRUCTION_FACTOR)
-    val = _div(_div(torch.where(q < 0, -mag, mag), gain), qs32)
+    val = _div(_div(torch.where(q < 0, -mag, mag),
+                    spec.WAVELET_QSTEPS[level][band]), np.float32(qs))
     return torch.where(q == 0, torch.zeros_like(val), val)
 
 
@@ -217,21 +246,19 @@ def dwt_reverse(mallat: torch.Tensor, levels: int, lossy: bool = False,
     _check(mallat.shape, levels)
     mallat = mallat.to(torch.int32)
     h, w = mallat.shape[-2:]
-    qs32 = np.float32(qs)
     ll = None
     for level in range(levels - 1, -1, -1):
         hh_, wh_ = h >> (level + 1), w >> (level + 1)
         hl = mallat[..., :hh_, wh_:2 * wh_]
         lh = mallat[..., hh_:2 * hh_, :wh_]
         hh = mallat[..., hh_:2 * hh_, wh_:2 * wh_]
-        if lossy:
-            g = spec.WAVELET_QSTEPS[level]
-            hl = _dequant(hl, g[spec.QS_HL], qs32)
-            lh = _dequant(lh, g[spec.QS_LH], qs32)
-            hh = _dequant(hh, g[spec.QS_HH], qs32)
-            if level == levels - 1:
-                ll = _dequant(mallat[..., :hh_, :wh_], g[spec.QS_LL], qs32)
-        elif ll is None:
+        if ll is None:
             ll = mallat[..., :hh_, :wh_]
-        ll = _inv_level(ll, hl, lh, hh, lossy)
+            if lossy:
+                ll = dequantize(ll, level, spec.QS_LL, qs)
+        if lossy:
+            hl, lh, hh = (dequantize(b, level, band, qs)
+                          for b, band in ((hl, spec.QS_HL), (lh, spec.QS_LH),
+                                          (hh, spec.QS_HH)))
+        ll = unlift_vertical(*unlift_horizontal(ll, hl, lh, hh, lossy), lossy)
     return ll

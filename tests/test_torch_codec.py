@@ -138,9 +138,10 @@ def test_cli_round_trip(tmp_path, lut_folder):
     ["-bps", "12", "-cp", "3"],
 ])
 def test_cli_unported_flags_exit_2(tmp_path, capsys, flags):
-    """Sharded coding exits 2; video, cp=3 and -k, refused until they
-    were ported, now round-trip a planar RAW frame (bit-exact for
-    lossless; a gray codestream is the oracle's, byte for byte)."""
+    """Video, sharding (-sharded 2: the image row-sharded over two CPU
+    shares, the placement printed), cp=3 and -k, refused until they were
+    ported, now round-trip a planar RAW frame (bit-exact for lossless; a
+    gray codestream is the oracle's, byte for byte)."""
     opts = dict(zip(flags[::2], flags[1::2]))
     rgb, bps = opts.get("-isRGB") == "1", int(opts.get("-bps", 8))
     img = make_image(np.random.default_rng(3), 64, 64).astype(np.uint16)
@@ -152,15 +153,13 @@ def test_cli_unported_flags_exit_2(tmp_path, capsys, flags):
         append_raw_frame(src, plane, dtype)
     rc = cli.main(["-cd", "0", "-i", src, "-o", enc, "-xSize", "64",
                    "-ySize", "64", "-wl", "1", "--device", "cpu", *flags])
-    if flags[0] == "-sharded":
-        assert rc == 2
-        assert "not yet ported" in capsys.readouterr().out
-        assert not os.path.exists(enc)
-        return
     assert rc == 0
     video = ["-video", "1"] if "-video" in opts else []
+    sharded = ["-sharded", opts["-sharded"]] if "-sharded" in opts else []
     assert cli.main(["-cd", "1", "-i", enc, "-o", dec, "--device", "cpu",
-                     *video]) == 0
+                     *video, *sharded]) == 0
+    if sharded:
+        assert capsys.readouterr().out.count("2 shards on the CPU") == 2
     back = [read_raw_frame(dec, 64, 64, c, dtype) for c in range(len(planes))]
     lossy = opts.get("-type") == "1"
     cp, k = int(opts.get("-cp", 2)), float(opts.get("-k", 0))

@@ -8,6 +8,8 @@ On the card, where JAX is absent, run them without the JAX conftest:
 Every value is an integer, so every comparison is exact (tolerance 0).
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -18,9 +20,11 @@ from picsong_tpu_torch.assembly import pack
 from picsong_tpu_torch.core.header import CodecConfig, pack_header
 from picsong_tpu_torch.core.image_io import mirror_pad
 from picsong_tpu_torch.core.lut import LUTParams, neutral_lut
+from picsong_tpu_torch.dist.sharded import ShardedCodec
 from picsong_tpu_torch.engine import video
 from picsong_tpu_torch.engine.batch import BatchCodec
 from picsong_tpu_torch.engine.pipeline import TorchCodec
+from picsong_tpu_torch import kernels
 from picsong_tpu_torch.entropy import bpc, bpc_cuda
 from picsong_tpu_torch.tools import probe, probe2
 from torch_twins import J
@@ -311,3 +315,121 @@ def test_batch_pack_equals_per_frame_pack(cuda):
     s_back, z_back = pack.unpack_streams(
         torch.from_numpy(joined.view(np.int16)).to(cuda), n, payload)
     assert torch.equal(s_back, streams) and torch.equal(z_back, sizes)
+
+
+def test_sharded_codec_on_cuda_equals_torch_codec(cuda):
+    """ShardedCodec on two shares of the card (every halo, gather and
+    tiling copy, one BPC launch a shard and component): TorchCodec's
+    codestreams on the card, and decodes equal to its own."""
+    frames = _frames(8, 3, h=320, w=128)
+    for cfg, pixels in (
+            (CodecConfig(width=128, height=320, wavelet_levels=5), frames[0]),
+            (CodecConfig(width=128, height=320, wavelet_levels=5,
+                         is_lossy=True, qs=1.0), frames[0]),
+            (CodecConfig(width=128, height=320, wavelet_levels=2, is_rgb=True,
+                         components=3), frames)):
+        n_comp = 3 if cfg.is_rgb else 1
+        luts = [neutral_lut(PARAMS, cfg.wavelet_levels, 2)] * n_comp
+        single = TorchCodec(cfg, luts, PARAMS, cuda)
+        codec = ShardedCodec(cfg, luts, PARAMS, ["cuda:0"] * 2)
+        want = single.encode(pixels)
+        bpc_cuda.reset_launches()
+        got = codec.encode(pixels)
+        assert bpc_cuda.ENCODE_LAUNCHES["cp2"] == 2 * n_comp
+        assert all(np.array_equal(g, w) for g, w in zip(got, want))
+        out = codec.decode(got)
+        assert bpc_cuda.DECODE_LAUNCHES["cp2"] == 2 * n_comp
+        back = single.decode(want)
+        assert all(np.array_equal(o, b) for o, b in
+                   zip(out if cfg.is_rgb else [out],
+                       back if cfg.is_rgb else [back]))
+
+
+def test_frame_parallel_video_on_cuda_equals_one_device(cuda, tmp_path):
+    """Five frames, batch 3 over two shares of the card (rounded up to 4,
+    2 frames a share): the file and `_SIZE` of devices=1, one launch per
+    share and batch, and a bit-exact decode over the two shares."""
+    raw, one, two, dec = (str(tmp_path / n) for n in
+                          ("v.raw", "1.enc", "2.enc", "d.raw"))
+    with open(raw, "wb") as f:
+        for p in _frames(9, 5):
+            f.write(p.tobytes())
+    cfg = CodecConfig(width=128, height=64, wavelet_levels=2, frames=5)
+    luts = [neutral_lut(PARAMS, 2, 2)]
+    video.encode_video(raw, one, cfg, luts, PARAMS, frames=5, batch=3,
+                       device=cuda)
+    bpc_cuda.reset_launches()
+    stats = video.encode_video(raw, two, cfg, luts, PARAMS, frames=5,
+                               batch=3, devices=["cuda:0"] * 2)
+    assert stats.batch == 4 and stats.batches == 2
+    assert bpc_cuda.ENCODE_LAUNCHES["cp2"] == 2 * 2
+    for suffix in ("", "_SIZE"):
+        assert open(two + suffix, "rb").read() == \
+            open(one + suffix, "rb").read()
+    video.decode_video(two, dec, cfg, luts, PARAMS, batch=3,
+                       devices=["cuda:0"] * 2)
+    assert bpc_cuda.DECODE_LAUNCHES["cp2"] == 2 * 2
+    assert open(dec, "rb").read() == open(raw, "rb").read()
+
+
+class _Spy:
+    """The kernel library, recording each BPC launch's stream argument and
+    the device current while it launches."""
+
+    def __init__(self):
+        self.lib = kernels.library()
+        self.calls = []
+
+    def __getattr__(self, name):
+        fn = getattr(self.lib, name)
+        if not name.startswith("picsong_bpc_"):
+            return fn
+
+        def launch(*args):
+            self.calls.append((args[-1], torch.cuda.current_device()))
+            return fn(*args)
+        return launch
+
+
+def _spied_round_trip(device, stream=None):
+    """Encode and decode a random batch on `device` (under `stream` if
+    given) through the spy; returns the spy's calls after checking the
+    results against the plain coder."""
+    blocks, args, kw, n_planes = _batch(5, 200)
+    dargs = [a.to(device) for a in args]
+    spy = _Spy()
+    b = blocks.to(device)
+    with (torch.cuda.stream(stream) if stream is not None
+          else contextlib.nullcontext()):
+        s_k, z_k = bpc_cuda.encode_blocks(b, *dargs, **kw, n_planes=n_planes,
+                                          lib=spy)
+        out = bpc_cuda.decode_blocks(s_k, z_k, *dargs, **kw,
+                                     n_planes=n_planes, lib=spy)
+    torch.cuda.synchronize(device)
+    want_s, want_z = bpc.encode_blocks_plain(blocks, *args, **kw,
+                                             n_planes=n_planes)
+    assert torch.equal(s_k.cpu(), want_s) and torch.equal(z_k.cpu(), want_z)
+    raw = want_z == 4096
+    assert torch.equal(out.cpu()[~raw], blocks[~raw])
+    return spy.calls
+
+
+def test_launch_goes_to_the_current_stream(cuda):
+    """Under a non-default current stream the BPC kernels launch on that
+    stream, with the results of the plain coder."""
+    side = torch.cuda.Stream(cuda)
+    calls = _spied_round_trip(cuda, side)
+    assert calls == [(side.cuda_stream, torch.cuda.current_device())] * 2
+
+
+def test_launch_on_second_card_goes_to_its_stream(cuda):
+    """Tensors on cuda:1 while cuda:0 is current: the launch runs under
+    cuda:1 on cuda:1's current stream (the stream of the tensors' device,
+    not of the current device)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices; this machine has "
+                    f"{torch.cuda.device_count()}")
+    second = torch.device("cuda", 1)
+    with torch.cuda.device(0):
+        calls = _spied_round_trip(second)
+    assert calls == [(torch.cuda.current_stream(second).cuda_stream, 1)] * 2

@@ -14,8 +14,10 @@ import numpy as np
 import pytest
 
 from picsong_tpu.engine import video as jvideo
+from picsong_tpu.reference import codec as oracle
 from picsong_tpu_torch.core.header import CodecConfig
-from picsong_tpu_torch.core.image_io import read_raw_frame
+from picsong_tpu_torch.core.image_io import (read_codestream, read_raw_frame,
+                                             read_sizes, sample_dtype)
 from picsong_tpu_torch.core.lut import LUTParams, neutral_lut
 from picsong_tpu_torch.engine import cli
 from picsong_tpu_torch.engine import video
@@ -181,6 +183,73 @@ def test_tame_then_wild_frames_give_jax_bytes_without_retry(tmp_path,
     assert read(dec) == read(raw)
 
 
+def _depth_frames(rng, n, bps, signed):
+    """`n` planes of a smooth pattern plus noise over the sample range."""
+    lo, hi = ((-(1 << (bps - 1)), (1 << (bps - 1)) - 1) if signed
+              else (0, (1 << bps) - 1))
+    span = hi - lo
+    y, x = np.mgrid[0:64, 0:64]
+    return [np.clip(lo + span / 2 + span / 3 * np.sin(x / 9.0 + k)
+                    * np.cos(y / 13.0) + rng.normal(0, span / 64, (64, 64)),
+                    lo, hi).astype(np.int32) for k in range(n)]
+
+
+@pytest.mark.parametrize("bps,signed,endianess,rgb", [
+    (16, False, 1, False), (12, True, 0, False), (16, True, 0, True)])
+def test_high_depth_lossless_video_equals_jax(tmp_path, bps, signed,
+                                              endianess, rgb):
+    """16-bit unsigned big-endian, 12-bit signed and 16-bit signed RGB, 3
+    frames, batch 2, wl=2: the file and `_SIZE` of the JAX engine, and a
+    decode equal to the JAX engine's decode."""
+    n_comp = 3 if rgb else 1
+    dtype = sample_dtype(bps, endianess, signed)
+    planes = _depth_frames(np.random.default_rng(bps + signed), 3 * n_comp,
+                           bps, signed)
+    raw, port, jax, dec, jdec = (str(tmp_path / n) for n in
+                                 ("v.raw", "p.enc", "j.enc", "d.raw",
+                                  "jd.raw"))
+    write_raw(raw, [p.astype(dtype) for p in planes])
+    cfg = CodecConfig(width=64, height=64, wavelet_levels=2, frames=3,
+                      bit_depth=bps, bps=bps, is_signed=signed,
+                      endianess=endianess, is_rgb=rgb, components=n_comp)
+    luts = luts_for(cfg)
+    video.encode_video(raw, port, cfg, luts, PARAMS, frames=3, batch=2,
+                       device="cpu")
+    jvideo.encode_video(raw, jax, J(cfg), luts, J(PARAMS), frames=3, batch=2)
+    assert_same_file(port, jax)
+    video.decode_video(port, dec, cfg, luts, PARAMS, batch=2, device="cpu")
+    jvideo.decode_video(jax, jdec, J(cfg), luts, J(PARAMS), batch=2)
+    assert read(dec) == read(jdec)
+
+
+@pytest.mark.parametrize("bps,signed,endianess", [
+    (16, False, 0), (12, True, 1), (16, True, 1)])
+def test_high_depth_lossy_video_frames_equal_oracle(tmp_path, bps, signed,
+                                                    endianess):
+    """Lossy 9/7 video at 16-bit unsigned and at 12- and 16-bit signed
+    big-endian: every frame's codestream is the oracle's `encode_image` of
+    that frame."""
+    dtype = sample_dtype(bps, endianess, signed)
+    planes = _depth_frames(np.random.default_rng(3 * bps + signed), 3, bps,
+                           signed)
+    raw, port = str(tmp_path / "v.raw"), str(tmp_path / "p.enc")
+    write_raw(raw, [p.astype(dtype) for p in planes])
+    cfg = CodecConfig(width=64, height=64, wavelet_levels=2, frames=3,
+                      bit_depth=bps, bps=bps, is_signed=signed,
+                      endianess=endianess, is_lossy=True, qs=1.0)
+    luts = luts_for(cfg)
+    video.encode_video(raw, port, cfg, luts, PARAMS, frames=3, batch=2,
+                       device="cpu")
+    sizes = read_sizes(port)
+    offsets = np.concatenate([[0], np.cumsum(sizes)])
+    native = dtype.newbyteorder("=")
+    for i, plane in enumerate(planes):
+        want = oracle.encode_image(plane.astype(native), J(cfg), luts,
+                                   J(PARAMS))[0]
+        got = read_codestream(port, int(offsets[i]), int(sizes[i]))
+        assert np.array_equal(got, want), f"frame {i}"
+
+
 def test_cli_video_round_trip(tmp_path, capsys):
     rng = np.random.default_rng(8)
     frames = [make_image(rng, 64, 64) for _ in range(3)]
@@ -204,13 +273,26 @@ def test_cli_video_round_trip(tmp_path, capsys):
 
 
 def test_cli_sharded_video_exits_2(tmp_path, capsys):
-    raw, enc = str(tmp_path / "v.raw"), str(tmp_path / "v.enc")
-    write_raw(raw, [np.zeros((64, 64), np.uint8)] * 2)
-    assert cli.main(["-cd", "0", "-i", raw, "-o", enc, "-wl", "1", "-video",
-                     "1", "-frames", "2", "-xSize", "64", "-ySize", "64",
-                     "-sharded", "2", "--device", "cpu"]) == 2
-    assert "not yet ported" in capsys.readouterr().out
-    assert not os.path.exists(enc)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        video.encode_video(raw, enc, CodecConfig(width=64, height=64), [],
-                           PARAMS, frames=2, devices=2, device="cpu")
+    """-sharded 2 with -video 1, refused until frame data parallelism was
+    ported, now codes each batch over two CPU shares: the file of the
+    unsharded CLI (and of the JAX engine), and a bit-exact decode."""
+    rng = np.random.default_rng(11)
+    raw, enc, one, dec = (str(tmp_path / n) for n in
+                          ("v.raw", "v.enc", "one.enc", "d.raw"))
+    write_raw(raw, [make_image(rng, 64, 64) for _ in range(3)])
+    args = ["-wl", "1", "-video", "1", "-frames", "3", "-xSize", "64",
+            "-ySize", "64", "-numberOfStreams", "2", "--device", "cpu"]
+    assert cli.main(["-cd", "0", "-i", raw, "-o", enc, *args,
+                     "-sharded", "2"]) == 0
+    assert "2 shards on the CPU" in capsys.readouterr().out
+    assert cli.main(["-cd", "0", "-i", raw, "-o", one, *args]) == 0
+    assert_same_file(enc, one)
+    assert cli.main(["-cd", "1", "-i", enc, "-o", dec, "-video", "1",
+                     "-numberOfStreams", "2", "-sharded", "2",
+                     "--device", "cpu"]) == 0
+    assert read(dec) == read(raw)
+    cfg = CodecConfig(width=64, height=64, wavelet_levels=1, frames=3)
+    jax = str(tmp_path / "j.enc")
+    jvideo.encode_video(raw, jax, J(cfg), luts_for(cfg), J(PARAMS), frames=3,
+                        batch=2, devices=2)
+    assert_same_file(enc, jax)
