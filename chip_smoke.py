@@ -12,6 +12,12 @@ regenerates them from the oracle; the inputs' digests are checked first),
 and drives each of the port's paths through the CLI, reading the
 kernels' launch counts (by coding mode) around each path. Nothing of JAX
 or of the JAX package `picsong_tpu` is imported:
+- the transform kernels X2 and X4 (`transform/dwt_cuda.py`, `dwt_phase`)
+  against their plain versions, byte-equal (codeblocks, maximum,
+  samples) in every case of DWT_CASES: 5/3 and 9/7 at qs 1, 0.5 and 0.7,
+  wl 1-5, gray 8/12/16-bit signed and unsigned, RGB RCT and ICT at
+  2048x2560, 1920x1088, a (8, 1088, 1920) and a (4, 3, 2048, 4096) batch,
+  8192x8192; then their times and the torch ops' at DWT_TIMED;
 - gray lossless 5/3, 2048x2048 at 5 wavelet levels, neutral and trained
   LUTs (the main path; then every layer of it is timed);
 - the two probe kernels against their plain versions on the probes' own
@@ -67,17 +73,20 @@ stages;
 on each path after the main one it also holds the BPC kernels equal to
 their plain versions on every component's codeblocks, at the path's
 n_planes and with the component's LUT; on the lossy ones it holds the
-card's quantized codeblocks, inverse DWT and decoded samples equal to a
-CPU TorchCodec's, and the CLI's decoded file equal to those samples. Then
+card's quantized codeblocks (X2) and decoded samples (X4) equal to the
+plain version's on the host, and the CLI's decoded file equal to those
+samples. Then
 it times the device halves and CLI round trips of the paths (the two
 cli.main calls alone) and each kernel variant against its plain version.
 The probes' times stand beside the launch floor: a one-element torch op
 timed the same way. Every comparison is exact except the lossy PSNR
 floors, which are stated where they are checked. The main path's layers
 include the device pack and unpack of the codestream (assembly/pack.py):
-only the packed bytes cross PCIe. The kernels line's launches are the
-cp2 kernels' on the 2048^2 CLI round trips (the main path) and each
-other mode's on its own 2048^2 round trips; the cp2 entries add, under
+only the packed bytes cross PCIe. Every CLI round trip must launch X2,
+X4 and its mode's BPC kernels (counts reset before it, read after). The
+kernels line's launches are the cp2 kernels' and X2/X4's on the 2048^2
+CLI round trips (the main path) and each other mode's on its own 2048^2
+round trips; the cp2 entries add, under
 "video", each video workload's own launches (one CLI encode or decode,
 counts reset just before it) beside the kernels' time and bound at that
 workload's batch shape, under "sharded" each sharded workload's
@@ -91,8 +100,10 @@ at the natural image's lossless launch of that size.
 Exits non-zero, printing no result, when there is no CUDA device or any
 check fails. Otherwise its last three lines are a JSON object with each
 kernel's launches, error, times and bound (the larger of its bytes over
-3.35 TB/s and its int32 operations over 16.7 Tops/s: bpc_cuda.bound_ms,
-probe.bound_ms, probe2.bound_ms), the card's name and power limit, then
+3.35 TB/s and its operations over 16.7 Tops/s int32 or 67 TFLOP/s
+float32: bpc_cuda.bound_ms, dwt_cuda.bound_ms, probe.bound_ms,
+probe2.bound_ms; X2/X4 also at each DWT_TIMED shape), the card's name
+and power limit, then
 {"ok": true, "device": {"platform": "gpu", ...}}.
 """
 
@@ -110,7 +121,7 @@ import time
 SIZE = 2048
 LEVELS = 5
 ITERS = 10
-PLAIN_ITERS = 3               # the plain BPC coder takes seconds a call
+PLAIN_ITERS = 1               # the plain BPC coder takes seconds a call
 KERNEL_BATCH = 20             # back-to-back launches per kernel timing
 LOSSY_LEVELS = 3              # BASELINE config 2
 RGB_W, RGB_H = 2048, 2560     # the reference's image workload
@@ -179,6 +190,164 @@ def kernel_ms(fn, iters=5):
     back-to-back launches."""
     return statistics.median(device_ms(fn, iters=iters, warm=1,
                                        per=KERNEL_BATCH))
+
+
+# the DWT phase's cases: (label, height, width, frames (0: an image), RGB,
+# lossy, qs, levels, bits, signed). 16-bit lossy at qs 1 is where a
+# one-ulp drift flips a truncation (coefficients reach ~1e5); 512^2 wl=5
+# and 2048^2 wl=5 end on planes smaller than a kernel tile; 1920x1088 on
+# planes that are not multiples of a tile.
+DWT_CASES = (
+    *((f"2048^2 5/3 wl={wl}", 2048, 2048, 0, False, False, 1.0, wl, 8,
+       False) for wl in (1, 2, 3, 4, 5)),
+    *((f"2048^2 9/7 qs {qs} wl={wl}", 2048, 2048, 0, False, True, qs, wl, 8,
+       False) for qs, wl in ((1.0, 3), (0.5, 5), (0.7, 4), (1.0, 1))),
+    ("512^2 5/3 wl=5", 512, 512, 0, False, False, 1.0, 5, 8, False),
+    ("512^2 9/7 qs 1 wl=5", 512, 512, 0, False, True, 1.0, 5, 8, False),
+    ("2048^2 12-bit 5/3 wl=5", 2048, 2048, 0, False, False, 1.0, 5, 12,
+     False),
+    ("2048^2 12-bit signed 9/7 qs 1 wl=3", 2048, 2048, 0, False, True, 1.0,
+     3, 12, True),
+    ("2048^2 16-bit 9/7 qs 1 wl=5", 2048, 2048, 0, False, True, 1.0, 5, 16,
+     False),
+    ("2048^2 16-bit 9/7 qs 0.7 wl=2", 2048, 2048, 0, False, True, 0.7, 2,
+     16, False),
+    ("2048^2 16-bit signed 5/3 wl=5", 2048, 2048, 0, False, False, 1.0, 5,
+     16, True),
+    ("2048^2 8-bit signed 9/7 qs 0.5 wl=2", 2048, 2048, 0, False, True, 0.5,
+     2, 8, True),
+    ("RGB 2048x2560 RCT wl=5", 2560, 2048, 0, True, False, 1.0, 5, 8, False),
+    ("RGB 2048x2560 ICT qs 1 wl=5", 2560, 2048, 0, True, True, 1.0, 5, 8,
+     False),
+    ("RGB 2048x2560 ICT qs 0.7 wl=3", 2560, 2048, 0, True, True, 0.7, 3, 8,
+     False),
+    ("1920x1088 5/3 wl=5", 1088, 1920, 0, False, False, 1.0, 5, 8, False),
+    ("1920x1088 9/7 qs 1 wl=5", 1088, 1920, 0, False, True, 1.0, 5, 8,
+     False),
+    ("(8, 1088, 1920) 5/3 wl=5", 1088, 1920, 8, False, False, 1.0, 5, 8,
+     False),
+    ("(4, 3, 2048, 4096) RCT wl=5", 2048, 4096, 4, True, False, 1.0, 5, 8,
+     False),
+    ("(4, 3, 2048, 4096) ICT qs 1 wl=5", 2048, 4096, 4, True, True, 1.0, 5,
+     8, False),
+    ("8192^2 5/3 wl=5", 8192, 8192, 0, False, False, 1.0, 5, 8, False),
+    ("8192^2 9/7 qs 1 wl=5", 8192, 8192, 0, False, True, 1.0, 5, 8, False),
+)
+# the shapes whose X2/X4 times the phase reports (case labels), the first
+# the main path's
+DWT_TIMED = ("2048^2 5/3 wl=5", "(8, 1088, 1920) 5/3 wl=5",
+             "8192^2 5/3 wl=5", "RGB 2048x2560 ICT qs 1 wl=5")
+
+
+def dwt_phase(dev, tag: str) -> dict:
+    """X2 and X4 (`transform/dwt_cuda.py`) against their plain versions on
+    the card in every case of DWT_CASES: the kernels' codeblocks, maximum
+    and samples byte-equal to the torch ops' on the same inputs (X4 on the
+    kernels' codeblocks), lossless samples equal to the input. Then the
+    kernels' and the torch ops' times at DWT_TIMED. Returns the max abs
+    errors and the times by label."""
+    import numpy as np
+    import torch
+
+    from picsong_tpu_torch.core.header import CodecConfig
+    from picsong_tpu_torch.obs.trace import device_spans
+    from picsong_tpu_torch.tools import goldens
+    from picsong_tpu_torch.transform import dwt_cuda
+
+    def kernel_device_ms(fn, name: str) -> float:
+        """The device time of the `name` kernels' spans a call of `fn`
+        (its level launches), from torch.profiler over KERNEL_BATCH calls:
+        the kernels' own time, without the wrapper's host time."""
+        fn()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(KERNEL_BATCH):
+                fn()
+            torch.cuda.synchronize()
+        spans = [hi - lo for n, lo, hi in device_spans(prof) if name in n]
+        _require(bool(spans), f"the profiler saw the {name} launches")
+        return sum(spans) / KERNEL_BATCH
+
+    started = time.perf_counter()
+    err = {"forward": 0, "reverse": 0}
+    cases, made = {}, {}
+
+    def diff(a, b) -> int:
+        return int((a.long() - b.long()).abs().max()) if a.numel() else 0
+
+    for label, h, w, frames, rgb, lossy, qs, wl, bits, signed in DWT_CASES:
+        cfg = CodecConfig(width=w, height=h, wavelet_levels=wl,
+                          is_lossy=lossy, qs=qs, is_rgb=rgb,
+                          components=3 if rgb else 1, bit_depth=bits,
+                          bps=bits, is_signed=signed)
+        peak = (1 << bits) - 1
+        n = max(frames, 1) * (3 if rgb else 1)
+        if (h, w, n, peak) not in made:
+            made[(h, w, n, peak)] = np.stack([
+                goldens.make_image(h, seed=11 + k, width=w, peak=peak)
+                for k in range(n)])
+        planes = made[(h, w, n, peak)]
+        if signed:
+            planes = (planes.astype(np.int32) - (peak + 1) // 2).astype(
+                np.int8 if bits <= 8 else np.int16)
+        planes = torch.from_numpy(planes).to(dev).reshape(
+            *((frames,) if frames else ()), *((3,) if rgb else ()), h, w)
+        samples = list(planes.unbind(-3)) if rgb else [planes]
+        before = dwt_cuda.FORWARD_LAUNCHES
+        blocks, top = dwt_cuda.forward(samples, cfg)
+        want, want_top = dwt_cuda.forward_plain(samples, cfg)
+        torch.cuda.synchronize()
+        _require(dwt_cuda.FORWARD_LAUNCHES == before + 1,
+                 f"dwt {label}: X2 launched once")
+        e = max([diff(b, p) for b, p in zip(blocks, want)]
+                + [diff(top, want_top)])
+        err["forward"] = max(err["forward"], e)
+        _require(e == 0, f"dwt {label}: X2 kernel == plain (codeblocks, "
+                 f"maximum), max abs err {e}")
+        back = dwt_cuda.reverse(blocks, cfg)
+        back_p = dwt_cuda.reverse_plain(blocks, cfg)
+        torch.cuda.synchronize()
+        e = max(diff(b, p) for b, p in zip(back, back_p))
+        err["reverse"] = max(err["reverse"], e)
+        _require(e == 0, f"dwt {label}: X4 kernel == plain (samples), max "
+                 f"abs err {e}")
+        if not lossy:
+            _require(all(torch.equal(b, s) for b, s in zip(back, samples)),
+                     f"dwt {label}: lossless X4(X2(samples)) == samples")
+        cases[label] = (cfg, samples, blocks)
+    print(f"{tag} DWT phase: X2 and X4 byte-equal to their plain versions "
+          f"in {len(DWT_CASES)} cases (max abs err forward "
+          f"{err['forward']}, reverse {err['reverse']}), lossless round "
+          f"trips exact; {time.perf_counter() - started:.1f} s")
+    times = {}
+    for label in DWT_TIMED:
+        cfg, samples, blocks = cases[label]
+        bound, by = dwt_cuda.bound_ms(samples, cfg)
+        t = times[label] = {
+            "forward_ms": kernel_ms(lambda: dwt_cuda.forward(samples, cfg)),
+            "reverse_ms": kernel_ms(lambda: dwt_cuda.reverse(blocks, cfg)),
+            "forward_device_ms": kernel_device_ms(
+                lambda: dwt_cuda.forward(samples, cfg), "dwt_forward_kernel"),
+            "reverse_device_ms": kernel_device_ms(
+                lambda: dwt_cuda.reverse(blocks, cfg), "dwt_reverse_kernel"),
+            "forward_plain_ms": statistics.median(device_ms(
+                lambda: dwt_cuda.forward_plain(samples, cfg), iters=3,
+                warm=1)),
+            "reverse_plain_ms": statistics.median(device_ms(
+                lambda: dwt_cuda.reverse_plain(blocks, cfg), iters=3,
+                warm=1)),
+            "bound_ms": bound, "bound_by": by}
+        print(f"{tag} dwt {label}: X2 {t['forward_ms']:.4f} ms, X4 "
+              f"{t['reverse_ms']:.4f} ms ({KERNEL_BATCH} back-to-back calls); "
+              f"the kernels' device time {t['forward_device_ms']:.4f} / "
+              f"{t['reverse_device_ms']:.4f} ms a call (profiler); "
+              f"plain {t['forward_plain_ms']:.4f} / "
+              f"{t['reverse_plain_ms']:.4f} ms; bound {bound:.5f} ms ({by}), "
+              f"share {bound / t['forward_ms']:.4f} / "
+              f"{bound / t['reverse_ms']:.4f}")
+    print(f"{tag} DWT phase done in {time.perf_counter() - started:.1f} s")
+    return {"err": err, "times": times}
 
 
 # the video workloads: (name, width, height, frames, batch, RGB, LUT
@@ -800,6 +969,7 @@ def quality_phase(dev, tag: str, err: dict) -> dict:
     from picsong_tpu_torch.entropy import bpc, bpc_cuda
     from picsong_tpu_torch.tools import goldens, lut_eval
     from picsong_tpu_torch.tools import quality_report as qr
+    from picsong_tpu_torch.transform import dwt_cuda
 
     same = {}
     for (name, size), want in goldens.QUALITY_IMAGES.items():
@@ -908,7 +1078,7 @@ def quality_phase(dev, tag: str, err: dict) -> dict:
                                wavelet_levels=qr.LEVELS, is_lossy=True,
                                qs=qs))
             c = TorchCodec(cfg, list(luts), params, dev)
-            blocks, mx = c._dwt_tile_impl(c._prep_gray_impl(img))
+            (blocks,), mx = dwt_cuda.forward([img], cfg)
             kw = dict(c._bpc_kw, n_planes=bpc.planes_for_magnitude(int(mx)))
             a = c._bpc_args()
             s_k, z_k = bpc_cuda.encode_blocks(blocks, *a, **kw)
@@ -1026,6 +1196,7 @@ def main() -> int:
     from picsong_tpu_torch.engine.pipeline import TorchCodec
     from picsong_tpu_torch.entropy import bpc, bpc_cuda
     from picsong_tpu_torch.tools import goldens, probe, probe2
+    from picsong_tpu_torch.transform import dwt_cuda
 
     make_image = goldens.make_image
 
@@ -1040,7 +1211,14 @@ def main() -> int:
     print(_run([kernels.find_nvcc(), "--version"]).splitlines()[-1])
     tag = f"[{card}]"
 
+    def stamp(phase: str) -> None:
+        """The phase's start, in seconds since the script's: the script's
+        time by phase."""
+        print(f"{tag} phase {phase} starts at "
+              f"{time.perf_counter() - started:.1f} s", flush=True)
+
     # ---- 2. build --------------------------------------------------------
+    stamp("2")
     t0 = time.perf_counter()
     _, log = kernels.build()
     kernels.library()
@@ -1100,6 +1278,7 @@ def main() -> int:
         _require(torch.equal(o_k, want), f"{mode} decode == input ({what})")
 
     # ---- 3. kernel vs plain on random batches ----------------------------
+    stamp("3")
     params = LUTParams()
     wl = 2
     n = 256
@@ -1172,7 +1351,12 @@ def main() -> int:
           f"LUTs; kernels byte-equal to plain (max abs err cp3 "
           f"{err['cp3']}, bulk {err['bulk']}), decode == input")
 
+    # ---- 3b. X2/X4 vs plain: the DWT phase --------------------------------
+    stamp("3b")
+    dwt = dwt_phase(dev, tag)
+
     # ---- 4. oracle check at BASELINE config 1 (512^2, wl=1) ---------------
+    stamp("4")
     img512 = make_image(512)
     for cp, k in ((2, 0.0), (3, 0.0), (2, K)):
         cfg1 = CodecConfig(width=512, height=512, wavelet_levels=1,
@@ -1190,6 +1374,7 @@ def main() -> int:
               "bit-exact")
 
     # ---- 5. the slice at 2048^2 wl=5 through the CLI ----------------------
+    stamp("5")
     img = make_image(SIZE)
     tmp = tempfile.TemporaryDirectory()
     src = os.path.join(tmp.name, "in.pgm")
@@ -1197,17 +1382,22 @@ def main() -> int:
 
     def cli_pair(job):
         """One CLI encode and decode (the timed round trip: no read-back, no
-        check). Sets every BPC launch count to 0 first, reads them after,
-        and returns the launches of the job's mode; no other mode may have
+        check). Sets every BPC and DWT launch count to 0 first, reads them
+        after, and returns the launches of the job's BPC mode and of X2
+        ("forward") and X4 ("reverse"); no other BPC mode may have
         launched."""
         enc_args, dec_args, what, mode = job
         bpc_cuda.reset_launches()
+        dwt_cuda.reset_launches()
         _require(cli.main(["-cd", "0", *enc_args]) == 0, f"CLI encode {what}")
         _require(cli.main(["-cd", "1", *dec_args]) == 0, f"CLI decode {what}")
         got = {"encode": bpc_cuda.ENCODE_LAUNCHES[mode],
-               "decode": bpc_cuda.DECODE_LAUNCHES[mode]}
-        _require(got["encode"] > 0 and got["decode"] > 0,
-                 f"{what} path launched both {mode} BPC kernels {got}")
+               "decode": bpc_cuda.DECODE_LAUNCHES[mode],
+               "forward": dwt_cuda.FORWARD_LAUNCHES,
+               "reverse": dwt_cuda.REVERSE_LAUNCHES}
+        _require(min(got.values()) > 0,
+                 f"{what} path launched both {mode} BPC kernels, X2 and X4 "
+                 f"{got}")
         others = sum(bpc_cuda.ENCODE_LAUNCHES[m] + bpc_cuda.DECODE_LAUNCHES[m]
                      for m in modes if m != mode)
         _require(others == 0, f"{what} path launched only its {mode} kernels")
@@ -1234,16 +1424,20 @@ def main() -> int:
 
     # launches of each kernel variant on the paths that carry it
     launches = {m: {"encode": 0, "decode": 0} for m in modes}
+    dwt_launches = {"forward": 0, "reverse": 0}
     exact, enc_bytes = {}, {}
     for lut_folder in ("neutral", "trained"):
         enc, dec, job = gray_job(lut_folder)
-        launches["cp2"] = add(launches["cp2"], cli_pair(job))
+        got = cli_pair(job)
+        launches["cp2"] = add(launches["cp2"], got)
+        dwt_launches = add(dwt_launches, got)
         exact[lut_folder] = np.array_equal(read_pgm(dec), img)
         enc_bytes[lut_folder] = os.path.getsize(enc)
     _require(all(exact.values()), f"2048^2 CLI round trips bit-exact {exact}")
     print(f"{tag} {SIZE}^2 wl={LEVELS} CLI round trips bit-exact: neutral "
           f"{enc_bytes['neutral']} B, trained {enc_bytes['trained']} B; "
-          f"kernel launches on the main path {launches['cp2']}")
+          f"kernel launches on the main path: BPC {launches['cp2']}, X2/X4 "
+          f"{dwt_launches}")
 
     def oracle_picks(label, c, blocks, streams, sizes, key):
         """The first codeblock of every level and subband of the 2048^2
@@ -1271,7 +1465,7 @@ def main() -> int:
     luts = [neutral_lut(params, LEVELS, 2)]
     codec = TorchCodec(cfg, luts, params, dev)
     samples = gpu(img)
-    blocks, max_mag = codec._dwt_tile_impl(codec._prep_gray_impl(samples))
+    (blocks,), max_mag = dwt_cuda.forward([samples], cfg)
     n_planes = bpc.planes_for_magnitude(int(max_mag))
     pargs, pkw = codec._bpc_args(), codec._bpc_kw
     streams, sizes = compare_encode(blocks, pargs, pkw, n_planes,
@@ -1285,6 +1479,7 @@ def main() -> int:
           "(LL and every level/subband) byte-equal to the oracle")
 
     # ---- 6. times ----------------------------------------------------------
+    stamp("6")
     mpix = SIZE * SIZE / 1e6
 
     def report(name, samples, rate=True, mp=mpix):
@@ -1348,8 +1543,8 @@ def main() -> int:
     _require(torch.equal(s_back, streams) and torch.equal(z_back, sizes),
              "device unpack == the kernel's streams and sizes")
     layers = {
-        "prep+DWT+tile": device_ms(
-            lambda: codec._dwt_tile_impl(codec._prep_gray_impl(samples))),
+        "prep+DWT+tile (X2)": device_ms(
+            lambda: dwt_cuda.forward([samples], cfg)),
         "BPC encode kernel": enc_kernel,
         "device pack (one scalar read)": host_ms(
             lambda: pack.pack_streams(streams, sizes, header)),
@@ -1359,8 +1554,8 @@ def main() -> int:
         "device unpack": device_ms(
             lambda: pack.unpack_streams(packed, codec.ncb, payload)),
         "BPC decode kernel": dec_kernel,
-        "untile+IDWT+clamp": device_ms(
-            lambda: codec._finish_gray_impl(codec._untile_idwt_impl(blocks))),
+        "untile+IDWT+clamp (X4)": device_ms(
+            lambda: dwt_cuda.reverse([blocks], cfg)),
     }
     for name, times in layers.items():
         report(f"layer {name}", times, rate=False)
@@ -1370,6 +1565,7 @@ def main() -> int:
                lambda: cli_pair(gray_job("neutral")[2]), cli_ms)
 
     # ---- 7. probes K3/K4: kernel vs plain, then their entry points -------
+    stamp("7")
     perr = {"probe": 0, "probe2": 0}
     pt = {}
     for name, module in (("probe", probe), ("probe2", probe2)):
@@ -1419,56 +1615,50 @@ def main() -> int:
     print(f"{tag} probe entry points: kernel launches {probe_launches}")
 
     # ---- 8. lossy 9/7 gray, BASELINE config 2 (2048^2 wl=3 qs=1) ---------
+    stamp("8")
     def check_planes(label, cfg, luts, lut_params, planes, host,
                      picks=None):
         """A path's planes on the card: each component's BPC kernels against
         their plain versions at the path's shapes, n_planes and LUT; with
-        `host`, also the card's quantized codeblocks, inverse DWT and decoded
-        samples against a CPU TorchCodec's; with `picks`, one codeblock of
-        every band against the oracle's digests of the `picks` key =
-        (coding passes, k, LUT folder). Returns the decoded planes, the
-        codec, its codeblocks and streams per component, and n_planes."""
+        `host`, also the card's quantized codeblocks (X2) and decoded
+        samples (X4) against the plain version's on the host; with `picks`,
+        one codeblock of every band against the oracle's digests of the
+        `picks` key = (coding passes, k, LUT folder). Returns the decoded
+        planes, the codec, its codeblocks and streams per component, and
+        n_planes."""
         c = TorchCodec(cfg, luts, lut_params, dev)
-        tiled = [c._dwt_tile_impl(x)
-                 for x in c._prep_impl([gpu(p) for p in planes])]
-        n_pl = bpc.planes_for_magnitude(max(int(m) for _, m in tiled))
+        tiled, top = dwt_cuda.forward([gpu(p) for p in planes], cfg)
+        n_pl = bpc.planes_for_magnitude(int(top))
         coded = []
-        for i, (blocks, _) in enumerate(tiled):
+        for i, blocks in enumerate(tiled):
             what = f"{label} component {i}"
             s_, z_ = compare_encode(blocks, c._bpc_args(i), c._bpc_kw, n_pl,
                                     what)
             compare_decode(s_, z_, c._bpc_args(i), c._bpc_kw, n_pl, blocks,
                            what)
             coded.append((s_, z_))
-        n_picks = (oracle_picks(label, c, tiled[0][0], *coded[0], picks)
+        n_picks = (oracle_picks(label, c, tiled[0], *coded[0], picks)
                    if picks else 0)
-        comps = [c._untile_idwt_impl(b) for b, _ in tiled]
-        out = [o.cpu() for o in c._finish_impl(comps)]
+        out = [o.cpu() for o in dwt_cuda.reverse(tiled, cfg)]
         if host:
-            h = TorchCodec(cfg, luts, lut_params, "cpu")
-            tiled_h = [h._dwt_tile_impl(x) for x in h._prep_impl(
-                [torch.from_numpy(p) for p in planes])]
-            comps_h = [h._untile_idwt_impl(b) for b, _ in tiled_h]
-            out_h = h._finish_impl(comps_h)
+            tiled_h, _ = dwt_cuda.forward(
+                [torch.from_numpy(p) for p in planes], cfg)
+            out_h = dwt_cuda.reverse(tiled_h, cfg)
             for i in range(len(tiled)):
                 what = f"{label} component {i}"
-                _require(torch.equal(tiled[i][0].cpu(), tiled_h[i][0]),
+                _require(torch.equal(tiled[i].cpu(), tiled_h[i]),
                          f"{what}: quantized codeblocks card == host")
-                _require(torch.equal(comps[i].cpu(), comps_h[i]),
-                         f"{what}: inverse DWT card == host, max abs diff "
-                         f"{float((comps[i].cpu() - comps_h[i]).abs().max())}")
                 mism = int((out[i] != out_h[i]).sum())
                 _require(mism == 0,
                          f"{what}: decoded samples card == host ({mism} differ)")
-        print(f"{tag} {label}: {len(tiled)} x {tiled[0][0].shape[0]} "
+        print(f"{tag} {label}: {len(tiled)} x {tiled[0].shape[0]} "
               f"codeblocks, n_planes {n_pl}; kernels byte-equal to plain on "
-              "every component" + ("; quantized codeblocks, inverse DWT and "
-                                   "decoded samples equal to the host port's"
-                                   if host else "")
+              "every component" + ("; the card's quantized codeblocks (X2) "
+                                   "and decoded samples (X4) equal to the "
+                                   "host port's" if host else "")
               + (f"; {n_picks} codeblocks (LL and every level/subband) "
                  "byte-equal to the oracle" if picks else ""))
-        return ([o.numpy() for o in out], c, [b for b, _ in tiled], coded,
-                n_pl)
+        return [o.numpy() for o in out], c, tiled, coded, n_pl
 
     def same_planes(back, out):
         return all(np.array_equal(b, o[:b.shape[0], :b.shape[1]])
@@ -1511,6 +1701,7 @@ def main() -> int:
           f"PSNR {psnr(dec512, img512):.4f} dB")
 
     # ---- 9. planar RGB 2048x2560, lossless RCT and lossy ICT -------------
+    stamp("9")
     rgb = [make_image(RGB_H, seed=s, width=RGB_W) for s in (5, 6, 7)]
     rgb_src = os.path.join(tmp.name, "rgb.raw")
     for plane in rgb:
@@ -1562,6 +1753,7 @@ def main() -> int:
              "RGB lossy: CLI decode == the host-checked card decode")
 
     # ---- 10. 16-bit gray lossless, 2048^2 --------------------------------
+    stamp("10")
     img16 = make_image(SIZE, seed=9, peak=65535)
     dt16 = sample_dtype(16)
     src16 = os.path.join(tmp.name, "in16.raw")
@@ -1590,6 +1782,7 @@ def main() -> int:
     # gray lossless wl=5, neutral and trained LUTs, each path's launches
     # counted around its own CLI round trip; then lossy wl=3 -k 5 with the
     # trained lossy LUT, held to a CPU TorchCodec as the other lossy paths
+    stamp("11")
     new_paths = {}
     for mode, cp, k in (("cp3", 3, 0.0), ("bulk", 2, K)):
         for lut_folder in ("neutral", "trained"):
@@ -1625,20 +1818,20 @@ def main() -> int:
           f"the -k {K:g} paths {launches['bulk']}")
 
     # ---- 12. times of the paths after the main one -----------------------
+    stamp("12")
     def path_times(label, cfg, luts, lut_params, planes, job):
         """Layer, device and CLI times of a path; the CLI round trip is the
         two cli.main calls alone (no read-back, no check)."""
         c = TorchCodec(cfg, luts, lut_params, dev)
         smp = [gpu(p) for p in planes]
         mp = cfg.width * cfg.height / 1e6
-        blocks = [b for b, _ in (c._dwt_tile_impl(x)
-                                 for x in c._prep_impl(smp))]
+        blocks, _ = dwt_cuda.forward(smp, cfg)
         coded, n_pl = c.encode_planes(smp)
         dcoded = [(s_, z_, n_pl) for s_, z_ in coded]
         torch.cuda.synchronize()
         layer = {
-            "prep+DWT+tile": device_ms(
-                lambda: [c._dwt_tile_impl(x) for x in c._prep_impl(smp)]),
+            "prep+DWT+tile (X2)": device_ms(
+                lambda: dwt_cuda.forward(smp, cfg)),
             "BPC encode kernel": device_ms(
                 lambda: [bpc_cuda.encode_blocks(b, *c._bpc_args(i),
                                                 **c._bpc_kw, n_planes=n_pl)
@@ -1650,9 +1843,8 @@ def main() -> int:
                 lambda: [bpc_cuda.decode_blocks(s_, z_, *c._bpc_args(i),
                                                 **c._bpc_kw, n_planes=n_pl)
                          for i, (s_, z_) in enumerate(coded)]),
-            "untile+IDWT+finish": device_ms(
-                lambda: c._finish_impl([c._untile_idwt_impl(b)
-                                        for b in blocks])),
+            "untile+IDWT+finish (X4)": device_ms(
+                lambda: dwt_cuda.reverse(blocks, cfg)),
         }
         for name, v in layer.items():
             report(f"{label} layer {name}", v, rate=False)
@@ -1682,6 +1874,7 @@ def main() -> int:
     tmp.cleanup()
 
     # ---- 13. 8192^2 wl=5: 16384 codeblocks, a size that fills the card ---
+    stamp("13")
     big = gpu(make_image(BIG))
     big_ms = {}
     for mode, cp, k in (("cp2", 2, 0.0), ("cp3", 3, 0.0), ("bulk", 2, K)):
@@ -1689,7 +1882,7 @@ def main() -> int:
                             coding_passes=cp, k_factor=k)
         luts_b, params_b = cli._load_luts("neutral", LEVELS, cp, k)
         cb = TorchCodec(cfg_b, luts_b, params_b, dev)
-        blocks_b, mx = cb._dwt_tile_impl(cb._prep_gray_impl(big))
+        (blocks_b,), mx = dwt_cuda.forward([big], cfg_b)
         n_pl = bpc.planes_for_magnitude(int(mx))
         a, kw = cb._bpc_args(), dict(cb._bpc_kw, n_planes=n_pl)
         s_b, z_b = bpc_cuda.encode_blocks(blocks_b, *a, **kw)
@@ -1728,14 +1921,17 @@ def main() -> int:
 
     # ---- 14. video through the CLI (-video 1), one launch per component
     # and frame batch ------------------------------------------------------
+    stamp("14")
     vid = video_phase(dev, tag, err)
 
     # ---- 15. the distribution layer: sharded images, frame-parallel and
     # multi-host video, every shard on the card ----------------------------
+    stamp("15")
     shd = sharded_phase(dev, tag, err)
 
     # ---- 16. the quality tools: QUALITY.md's rows and lut_eval on the
     # card -----------------------------------------------------------------
+    stamp("16")
     qual = quality_phase(dev, tag, err)
     print(f"{tag} every phase done {time.perf_counter() - started:.1f} s "
           "after the start")
@@ -1790,6 +1986,26 @@ def main() -> int:
                     "launches": r["launches"][d], "ms": r[f"{d}_ms"],
                     "bound_ms": r["bound_ms"], "bound_by": r["bound_by"]}
                     for r in qual]
+    # X2/X4 at the main path's shape; launches on its two CLI round trips
+    main_dwt = dwt["times"][DWT_TIMED[0]]
+    for d, line in (("forward", 157), ("reverse", 187)):
+        entries.append({
+            "name": f"dwt_{d}", "route": "cuda",
+            "source": f"{src_dir}/dwt_{d}.cu",
+            "replaces": f"picsong_tpu/transform/dwt.py:{line}",
+            "launches": dwt_launches[d], "max_abs_err": dwt["err"][d],
+            "ms": main_dwt[f"{d}_ms"], "plain_ms": main_dwt[f"{d}_plain_ms"],
+            "device_ms": main_dwt[f"{d}_device_ms"],
+            "bound_ms": main_dwt["bound_ms"],
+            "bound_by": main_dwt["bound_by"],
+            # no single PyTorch call computes a lifting DWT
+            "library_ms": None,
+            "shapes": [{"workload": label, "ms": t[f"{d}_ms"],
+                        "device_ms": t[f"{d}_device_ms"],
+                        "plain_ms": t[f"{d}_plain_ms"],
+                        "bound_ms": t["bound_ms"],
+                        "bound_by": t["bound_by"]}
+                       for label, t in dwt["times"].items()]})
     for name, line in (("probe", 58), ("probe2", 54)):
         module = probe if name == "probe" else probe2
         bound, by = module.bound_ms(*(gpu(x) for x in module.inputs(0)))

@@ -6,9 +6,12 @@ Counterpart of `picsong_tpu.dist.sharded`. There, GSPMD partitions one
 program over a device mesh and inserts the halo exchanges and all-to-alls
 itself (`sharded.py:84-97, 118-135`); here every exchange is an explicit
 copy between shards, and each shard runs the single-device port's own
-steps (`TorchCodec._prep_impl` / `_finish_impl`, the lifting steps of
+steps (`dwt_cuda.prep` / `finish`, the lifting steps of
 `transform/dwt.py`, the BPC kernels of `entropy/bpc_cuda.py` on its own
-device).
+device). The transforms stay torch ops here: the X2/X4 kernels
+(`transform/dwt_cuda.py`) lift whole planes, and a shard's lifting needs
+its neighbours' halo rows between the vertical and horizontal passes;
+feeding those halos to the kernels is the next step (ROADMAP queue 2).
 
 The bytes are the contract, as in the JAX package (`sharded.py:21-22`):
 every sharded codestream is byte-identical to the single-device port's,
@@ -22,7 +25,7 @@ Row-sharded image, one component (the others alike):
   (17 codeblock rows) splits 5/4/4/4 over 4 shards, and shards past the
   last unit hold no rows.
 - *Prep.* Each shard uploads its rows of the mirror-padded samples and
-  runs `TorchCodec._prep_impl` on them (DC shift, RCT or ICT: all within a
+  runs `dwt_cuda.prep` on them (DC shift, RCT or ICT: all within a
   pixel).
 - *Lifting with halos.* Each level's vertical pass reads neighbouring
   rows. A shard extends its rows with a halo of its neighbours' (2 rows
@@ -72,7 +75,7 @@ from ..core.lut import LUTParams
 from ..engine.batch import BatchCodec
 from ..engine.pipeline import TorchCodec
 from ..entropy import bpc, bpc_cuda
-from ..transform import dwt
+from ..transform import dwt, dwt_cuda
 
 _CB = spec.CBLOCK_LENGTH
 
@@ -399,8 +402,7 @@ class ShardedCodec:
         """Prep, the sharded DWT and the tiling: `upload`'s rows -> per
         component, each codeblock shard's (n, 64, 64) int32 codeblocks on
         its device."""
-        comps = [self._codec(s)._prep_impl(rows)
-                 for (s, _, _), rows in zip(self._plan[0], samples)]
+        comps = [dwt_cuda.prep(rows, self.cfg) for rows in samples]
         return [self._tile(self._forward([c[i] for c in comps]))
                 for i in range(self.n_components)]
 
@@ -421,8 +423,8 @@ class ShardedCodec:
         comps = [self._inverse(self._untile(self._decode_blocks(
             shards, n_planes, i)))
             for i, (shards, n_planes) in enumerate(coded)]
-        return [self._codec(s)._finish_impl([c[k] for c in comps])
-                for k, (s, _, _) in enumerate(self._plan[0])]
+        return [dwt_cuda.finish([c[k] for c in comps], self.cfg)
+                for k in range(len(self._plan[0]))]
 
     def encode(self, pixels) -> list[np.ndarray]:
         """(height, width) samples (gray) or [R, G, B] planes -> one packed

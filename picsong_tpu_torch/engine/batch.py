@@ -3,10 +3,10 @@
 Counterpart of `picsong_tpu.engine.batch.BatchCodec`. BPC-PaCo codeblocks
 are independent, so a batch of B frames is B x ncb codeblocks, frame-major
 (frame f's blocks are rows [f * ncb, (f + 1) * ncb)), coded by ONE kernel
-launch per component. The transforms are `TorchCodec`'s own device
-functions over a leading frame axis (the DWT and the tiling take
-(..., H, W)), so a frame of a video takes the arithmetic of the same frame
-coded as an image, and its codestream has the same bytes.
+launch per component. The transforms are `TorchCodec`'s own, X2 and X4
+(`transform/dwt_cuda.py`), over a leading frame axis: one launch a level
+for the whole batch, and a frame of a video takes the arithmetic of the
+same frame coded as an image, so its codestream has the same bytes.
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ from ..core.geometry import codeblock_bands
 from ..core.header import CodecConfig
 from ..core.lut import LUTParams
 from ..entropy import bpc, bpc_cuda
+from ..transform import dwt_cuda
 from .pipeline import TorchCodec, meta_to_torch
 
 _CH, _CW = spec.CBLOCK_LENGTH, spec.CBLOCK_WIDTH
@@ -51,11 +52,9 @@ class BatchCodec:
         """Samples -> (per component the (B * ncb, 64, 64) int32
         codeblocks, the coefficient maximum over all of them as a 0-dim
         device tensor). Reads nothing back from the device."""
-        c = self.codec
         samples = list(frames.unbind(1)) if self.cfg.is_rgb else [frames]
-        tiled = [c._dwt_tile_impl(x) for x in c._prep_impl(samples)]
-        blocks = [b.reshape(-1, _CH, _CW) for b, _ in tiled]
-        return blocks, torch.stack([m for _, m in tiled]).amax()
+        blocks, top = dwt_cuda.forward(samples, self.cfg)
+        return [b.reshape(-1, _CH, _CW) for b in blocks], top
 
     def encode_blocks(self, blocks: list[torch.Tensor], n_planes: int):
         """One BPC encode launch per component -> [(streams (B * ncb,
@@ -69,13 +68,9 @@ class BatchCodec:
         """[(streams (B * ncb, 4096), int32 sizes)] per component, on the
         device -> the decoded (B, ah, aw) or (B, 3, ah, aw) samples, one
         BPC decode launch per component."""
-        c = self.codec
-        comps = []
-        for i, (streams, sizes) in enumerate(coded):
-            blocks = bpc_cuda.decode_blocks(streams, sizes,
-                                            *self._bpc_args(i), **c._bpc_kw,
-                                            n_planes=n_planes)
-            comps.append(c._untile_idwt_impl(
-                blocks.reshape(self.batch, self.ncb, _CH, _CW)))
-        planes = c._finish_impl(comps)
+        blocks = [bpc_cuda.decode_blocks(
+            streams, sizes, *self._bpc_args(i), **self.codec._bpc_kw,
+            n_planes=n_planes).reshape(self.batch, self.ncb, _CH, _CW)
+            for i, (streams, sizes) in enumerate(coded)]
+        planes = dwt_cuda.reverse(blocks, self.cfg)
         return torch.stack(planes, dim=1) if self.cfg.is_rgb else planes[0]

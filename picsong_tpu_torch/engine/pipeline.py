@@ -6,8 +6,9 @@ configuration: gray or RGB, lossless 5/3 or lossy 9/7, samples of up to
 (-cp), with or without complexity scalability (-k). The device path is DC
 shift (and RCT or ICT) -> multi-level DWT -> 64x64 codeblock tiling ->
 BPC-PaCo encode per component, and the mirror BPC-PaCo decode -> untile
--> inverse DWT -> inverse color transform -> clamp; on a CUDA device the
-BPC steps are the hand-written kernels, in the variant of the coding mode
+-> inverse DWT -> inverse color transform -> clamp; on a CUDA device every
+step is a hand-written kernel: the transforms X2 and X4
+(`transform/dwt_cuda.py`) and BPC-PaCo in the variant of the coding mode
 (cp=2, cp=3, or bulk for k > 0). The codestream is packed and unpacked on
 the codec's device (`assembly/pack.py`), so only the packed bytes cross
 to and from the host: one codestream per component, the header on the
@@ -30,14 +31,13 @@ import torch
 
 from ..assembly import pack
 from ..core import spec
-from ..core.geometry import (codeblock_bands, codeblocks_to_plane,
-                             plane_to_codeblocks)
+from ..core.geometry import codeblock_bands
 from ..core.header import CodecConfig, pack_header
 from ..core.image_io import mirror_pad, sample_dtype
 from ..core.lut import LUTParams
 from ..entropy import bpc, bpc_cuda
 from ..obs.trace import StageTimers
-from ..transform.dwt import dwt_forward, dwt_reverse
+from ..transform import dwt_cuda
 
 
 def luts_to_torch(luts: list[np.ndarray], device) -> list[torch.Tensor]:
@@ -52,45 +52,11 @@ def meta_to_torch(meta, device) -> tuple[torch.Tensor, ...]:
     return tuple(torch.tensor(np.asarray(m), device=device) for m in meta)
 
 
-# the reference's float -> int reconstruction, __float2int_rn(x + 0.01f)
-# (DecodingEngine.cu:640-642, 706-715)
-_ROUND_BIAS = float(np.float32(0.01))
-
-
-def _sample_range(cfg: CodecConfig) -> tuple[int, int]:
-    """Reconstruction clamp range from bit depth and signedness."""
-    if cfg.is_signed:
-        return -(1 << (cfg.bit_depth - 1)), (1 << (cfg.bit_depth - 1)) - 1
-    return 0, (1 << cfg.bit_depth) - 1
-
-
-def _torch_sample_dtype(cfg: CodecConfig) -> torch.dtype:
-    """Decoded sample type (TPUCodec's _jnp_sample_dtype)."""
-    if cfg.bps <= 8:
-        return torch.int8 if cfg.is_signed else torch.uint8
-    return torch.int16 if cfg.is_signed else torch.uint16
-
-
-def _fma_row(m_row, a: torch.Tensor, b: torch.Tensor,
-             c: torch.Tensor) -> torch.Tensor:
-    """fma(m2, c, fma(m1, b, m0 * a)) in float32: the NumPy oracle's color
-    transform (`reference/codec.py` ict_forward / ict_inverse, a float32
-    `tensordot` that an FMA-contracting BLAS such as OpenBLAS's sgemm
-    computes as this chain; a BLAS that does not contract gives other
-    bytes). A product of two float32 values is exact in float64; each step
-    then rounds twice, the float64 add and the cast to float32, which is
-    the single fused rounding except in rare double-rounding cases (none
-    has shown in the byte tests)."""
-    acc = a * float(m_row[0])
-    acc = (b.double() * float(m_row[1]) + acc.double()).float()
-    return (c.double() * float(m_row[2]) + acc.double()).float()
-
-
 class TorchCodec:
     """Reusable encoder/decoder for one image geometry and configuration.
 
     `device` is where the planes, coefficients and streams live: "cuda"
-    runs the BPC kernels, "cpu" their plain PyTorch version."""
+    runs the kernels, "cpu" their plain PyTorch versions."""
 
     def __init__(self, cfg: CodecConfig, luts: list[np.ndarray],
                  params: LUTParams, device="cuda",
@@ -119,10 +85,6 @@ class TorchCodec:
         self.timers = StageTimers(nvtx=self.device.type == "cuda")
 
     @property
-    def _offset(self) -> int:
-        return 0 if self.cfg.is_signed else (1 << (self.cfg.bit_depth - 1))
-
-    @property
     def n_components(self) -> int:
         return 3 if self.cfg.is_rgb else 1
 
@@ -131,100 +93,27 @@ class TorchCodec:
         per-block arrays; the mode keywords are `_bpc_kw`."""
         return (self.luts[min(component, len(self.luts) - 1)], *self._meta)
 
-    # -- device programs ---------------------------------------------------
-
-    def _prep_gray_impl(self, samples: torch.Tensor) -> torch.Tensor:
-        """DC level shift (offsetImage, CodingEngine.cu:581-588); float32
-        for the 9/7 path."""
-        shifted = samples.to(torch.int32) - self._offset
-        return shifted.to(torch.float32) if self.cfg.is_lossy else shifted
-
-    def _prep_rgb_impl(self, r: torch.Tensor, g: torch.Tensor,
-                       b: torch.Tensor) -> tuple[torch.Tensor, ...]:
-        """DC shift + color transform (CodingEngine.cu:357-403): RCT in
-        int32, or ICT in float32 as the oracle rounds it."""
-        ri, gi, bi = (x.to(torch.int32) - self._offset for x in (r, g, b))
-        if self.cfg.is_lossy:
-            rf, gf, bf = (x.to(torch.float32) for x in (ri, gi, bi))
-            return tuple(_fma_row(row, rf, gf, bf) for row in spec.ICT_FORWARD)
-        return (ri + 2 * gi + bi) >> 2, bi - gi, ri - gi
-
-    def _dwt_tile_impl(self, plane: torch.Tensor):
-        """DWT (+ quantization, truncated to int32) + codeblock tiling +
-        max |coefficient|."""
-        cfg = self.cfg
-        coeffs = dwt_forward(plane, cfg.wavelet_levels, cfg.is_lossy, cfg.qs)
-        blocks = plane_to_codeblocks(coeffs.to(torch.int32)).contiguous()
-        return blocks, blocks.abs().amax()
-
-    def _untile_idwt_impl(self, blocks: torch.Tensor) -> torch.Tensor:
-        cfg = self.cfg
-        mallat = codeblocks_to_plane(blocks, self.ah, self.aw)
-        return dwt_reverse(mallat, cfg.wavelet_levels, cfg.is_lossy, cfg.qs)
-
-    def _finish_gray_impl(self, plane: torch.Tensor) -> torch.Tensor:
-        """Undo the DC shift and clamp (removeOffsetAndApplyMaxMin[Lossy],
-        DecodingEngine.cu:706-729); torch.round is half-to-even like
-        jnp.rint."""
-        mn, mx = _sample_range(self.cfg)
-        if self.cfg.is_lossy:
-            vals = torch.round(plane + float(self._offset) + _ROUND_BIAS)
-        else:
-            vals = plane + self._offset
-        return torch.clamp(vals, mn, mx).to(_torch_sample_dtype(self.cfg))
-
-    def _finish_rgb_impl(self, c0: torch.Tensor, c1: torch.Tensor,
-                         c2: torch.Tensor) -> tuple[torch.Tensor, ...]:
-        """Inverse color transform + DC shift + clamp
-        (DecodingEngine.cu:599-650)."""
-        if self.cfg.is_lossy:
-            r, g, b = (torch.round(_fma_row(row, c0, c1, c2)
-                                   + _ROUND_BIAS).to(torch.int32)
-                       for row in spec.ICT_BACKWARD)
-        else:
-            y, u, v = (c.to(torch.int32) for c in (c0, c1, c2))
-            g = y - ((u + v) >> 2)
-            r, b = v + g, u + g
-        mn, mx = _sample_range(self.cfg)
-        out = _torch_sample_dtype(self.cfg)
-        return tuple(torch.clamp(c + self._offset, mn, mx).to(out)
-                     for c in (r, g, b))
-
-    def _prep_impl(self, samples: list[torch.Tensor]) -> list[torch.Tensor]:
-        """Sample planes (one gray or [R, G, B]) -> component planes."""
-        if self.cfg.is_rgb:
-            return list(self._prep_rgb_impl(*samples))
-        return [self._prep_gray_impl(samples[0])]
-
-    def _finish_impl(self, comps: list[torch.Tensor]) -> list[torch.Tensor]:
-        """Reconstructed component planes -> sample planes."""
-        if self.cfg.is_rgb:
-            return list(self._finish_rgb_impl(*comps))
-        return [self._finish_gray_impl(comps[0])]
-
     def encode_planes(self, samples: list[torch.Tensor]):
         """Device half of encode (TPUCodec._prep_* + _encode_plane): the
         padded (ah, aw) sample planes on the codec's device, one gray or
         [R, G, B] -> ([(streams (ncb, 4096) int32, sizes (ncb,) int32)] per
         component, n_planes), streams on the device. Reads one scalar from
         the device: the coefficient maximum over all components."""
-        tiled = [self._dwt_tile_impl(c) for c in self._prep_impl(samples)]
-        max_mag = torch.stack([m for _, m in tiled]).amax()
+        blocks, max_mag = dwt_cuda.forward(samples, self.cfg)
         n_planes = bpc.planes_for_magnitude(int(max_mag))
-        coded = [bpc_cuda.encode_blocks(blocks, *self._bpc_args(i),
+        coded = [bpc_cuda.encode_blocks(b, *self._bpc_args(i),
                                         **self._bpc_kw, n_planes=n_planes)
-                 for i, (blocks, _) in enumerate(tiled)]
+                 for i, b in enumerate(blocks)]
         return coded, n_planes
 
     def decode_planes(self, coded) -> list[torch.Tensor]:
         """Device half of decode (TPUCodec._decode_plane + _finish_*):
         [(streams, int32 sizes, n_planes)] per component, on the device ->
         the (ah, aw) sample planes, one gray or [R, G, B]."""
-        comps = [self._untile_idwt_impl(bpc_cuda.decode_blocks(
-                     streams, sizes, *self._bpc_args(i), **self._bpc_kw,
-                     n_planes=n_planes))
-                 for i, (streams, sizes, n_planes) in enumerate(coded)]
-        return self._finish_impl(comps)
+        blocks = [bpc_cuda.decode_blocks(streams, sizes, *self._bpc_args(i),
+                                         **self._bpc_kw, n_planes=n_planes)
+                  for i, (streams, sizes, n_planes) in enumerate(coded)]
+        return dwt_cuda.reverse(blocks, self.cfg)
 
     # -- host-facing API ---------------------------------------------------
 

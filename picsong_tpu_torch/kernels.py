@@ -9,8 +9,10 @@ at first use (or when a source is newer than the library), and loaded with
 
 There is no fallback: a missing compiler, a failed build or a failed load
 raises `KernelBuildError` with the compiler's output. Only the wrappers
-(`entropy/bpc_cuda.py`, `tools/probe.py`, `tools/probe2.py`) call into the
-library, and only for CUDA tensors.
+(`entropy/bpc_cuda.py`, `transform/dwt_cuda.py`, `tools/probe.py`,
+`tools/probe2.py`) call into the library, and only for CUDA tensors. No
+source needs `--fmad=false`: the 9/7 kernels round through explicit
+intrinsics.
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ LIB_NAME = "libpicsong_kernels.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # name -> argument types; every C entry point returns a cudaError_t as int
 _SIGNATURES = {
     # blocks, lut, lut_len, ref_b, sig_b, sign_b, cp_sig_b, cp_sign_b,
@@ -44,6 +46,13 @@ _SIGNATURES = {
     "picsong_probe": [_P, _P, _P, _P],
     # tape, amt, out, stream
     "picsong_probe2": [_P, _P, _P, _P],
+    # s0, s1, s2, type, batch_stride, row_stride, batch, comps, h, w,
+    # levels, lossy, offset, consts, scratch, blocks, top, stream
+    "picsong_dwt_forward": [_P, _P, _P, _I, _L, _L, *[_I] * 7, _P, _P, _P,
+                            _P, _P],
+    # b0, b1, b2, batch, comps, h, w, levels, lossy, offset, lo, hi, type,
+    # consts, scratch, out, stream
+    "picsong_dwt_reverse": [_P, _P, _P, *[_I] * 10, _P, _P, _P, _P],
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

@@ -20,13 +20,16 @@ largest magnitude outside the LL band) copied n times, n from 1 to 4224:
 while the copies fit in one wave of resident CTAs, the time is one
 block's dependency chain.
 
-`--layers` instead times the torch-op layers around the kernels, each
-tree's own `TorchCodec` (the other tree's package imported under another
-name) on the same 2048^2 plane, in the same turns: prep + DWT + tiling and
-untile + inverse DWT + clamp (CUDA events around one call, as
-chip_smoke.py's layers; sixteen turns of ten), lossless 5/3 wl=5 and lossy 9/7 wl=3 qs=1; for
-the lossless one also the device encode and decode and the CLI round trip
-(host clock with a synchronize, as chip_smoke.py's). Outputs must be equal.
+`--layers` instead times the layers around the BPC kernels, each tree's
+own (the other tree's package imported under another name) on the same
+2048^2 plane, in the same turns: prep + DWT + tiling and untile + inverse
+DWT + clamp as the tree's codec runs them -- `transform/dwt_cuda.py`'s
+`forward` / `reverse` where the tree has them (the X2/X4 kernels), else
+`TorchCodec`'s torch-op methods -- (CUDA events around one call, as
+chip_smoke.py's layers; sixteen turns of ten), lossless 5/3 wl=5 and lossy
+9/7 wl=3 qs=1; for the lossless one also the device encode and decode and
+the CLI round trip (host clock with a synchronize, as chip_smoke.py's).
+Outputs must be equal.
 """
 
 from __future__ import annotations
@@ -94,6 +97,20 @@ def _other_package(root: str):
     return mod
 
 
+def _tree_layers(pkg: str, codec, samples):
+    """(prep + DWT + tiling -> blocks, untile + IDWT + clamp of blocks ->
+    samples) of a gray plane, as the tree `pkg`'s codec runs them."""
+    try:
+        dwt_cuda = importlib.import_module(f"{pkg}.transform.dwt_cuda")
+    except ModuleNotFoundError:            # a tree from before X2/X4
+        return (lambda: codec._dwt_tile_impl(
+                    codec._prep_gray_impl(samples))[0],
+                lambda b: codec._finish_gray_impl(
+                    codec._untile_idwt_impl(b)))
+    return (lambda: dwt_cuda.forward([samples], codec.cfg)[0][0],
+            lambda b: dwt_cuda.reverse([b], codec.cfg)[0])
+
+
 def _layers(other_root: str, card: str) -> int:
     """Both trees' torch-op layers on one 2048^2 plane, in turns."""
     import numpy as np
@@ -123,20 +140,20 @@ def _layers(other_root: str, card: str) -> int:
         codecs = {t: m["engine.pipeline"].TorchCodec(
             m["core.header"].CodecConfig(width=size, height=size, **kw),
             luts, params, dev) for t, m in trees.items()}
-        blocks = {t: c._dwt_tile_impl(c._prep_gray_impl(samples))[0]
-                  for t, c in codecs.items()}
-        back = {t: c._finish_gray_impl(c._untile_idwt_impl(blocks[t]))
-                for t, c in codecs.items()}
+        pkgs = {"other": "ab_other", "this": "picsong_tpu_torch"}
+        fns = {t: _tree_layers(pkgs[t], c, samples)
+               for t, c in codecs.items()}
+        blocks = {t: fwd() for t, (fwd, _) in fns.items()}
+        back = {t: rev(blocks[t]) for t, (_, rev) in fns.items()}
         if not (torch.equal(blocks["this"], blocks["other"])
                 and torch.equal(back["this"], back["other"])):
             print(f"kernel_ab: {name}: the trees' layers disagree",
                   file=sys.stderr)
             return 1
         layers = {
-            "prep+DWT+tile": lambda c: (lambda: c._dwt_tile_impl(
-                c._prep_gray_impl(samples))),
-            "untile+IDWT+clamp": lambda c: (lambda: c._finish_gray_impl(
-                c._untile_idwt_impl(blocks["this"]))),
+            "prep+DWT+tile": lambda t: fns[t][0],
+            "untile+IDWT+clamp": lambda t: (lambda: fns[t][1](
+                blocks["this"])),
         }
         if not kw.get("is_lossy"):
             enc = os.path.join(tmp.name, "o.enc")
@@ -155,15 +172,16 @@ def _layers(other_root: str, card: str) -> int:
                               "0", "-LUTFolder", "neutral"])
                 return run
             layers.update({
-                "device encode": lambda c: (lambda: c.encode_planes(
+                "device encode": lambda t: (lambda: codecs[t].encode_planes(
                     [samples])),
-                "device decode": lambda c: (lambda: c.decode_planes(coded)),
+                "device decode": lambda t: (lambda: codecs[t].decode_planes(
+                    coded)),
             })
         for layer, make in layers.items():
             host = layer.startswith("device")
             samples_ms = {"other": [], "this": []}
             for t in LAYER_TURNS:
-                fn = make(codecs[t])
+                fn = make(t)
                 samples_ms[t] += (_host_times(fn) if host
                                   else _times(fn, per=1))
             _print_ab(name, layer, "host clock" if host else "CUDA events",
@@ -208,6 +226,7 @@ def main(argv: list[str] | None = None) -> int:
     from ..engine import cli
     from ..engine.pipeline import TorchCodec
     from ..entropy import bpc, bpc_cuda
+    from ..transform import dwt_cuda
     from . import goldens
 
     if not torch.cuda.is_available():
@@ -231,7 +250,7 @@ def main(argv: list[str] | None = None) -> int:
         luts, params = cli._load_luts("neutral", 5, 2, 0.0)
         c = TorchCodec(cfg, luts, params, dev)
         img = torch.from_numpy(goldens.make_image(2048)).to(dev)
-        blocks, mx = c._dwt_tile_impl(c._prep_gray_impl(img))
+        (blocks,), mx = dwt_cuda.forward([img], cfg)
         kw = dict(c._bpc_kw, n_planes=bpc.planes_for_magnitude(int(mx)))
         mag = blocks.reshape(blocks.shape[0], -1).abs().amax(dim=1)
         level = torch.as_tensor(codeblock_bands(c.aw, c.ah, 5)[0], device=dev)
@@ -258,7 +277,7 @@ def main(argv: list[str] | None = None) -> int:
                               coding_passes=cp, k_factor=k)
             luts, params = cli._load_luts("neutral", 5, cp, k)
             c = TorchCodec(cfg, luts, params, dev)
-            blocks, mx = c._dwt_tile_impl(c._prep_gray_impl(img))
+            (blocks,), mx = dwt_cuda.forward([img], cfg)
             n_planes = bpc.planes_for_magnitude(int(mx))
             a, kw = c._bpc_args(), dict(c._bpc_kw, n_planes=n_planes)
             enc = {t: bpc_cuda.encode_blocks(blocks, *a, **kw, lib=lib)

@@ -26,7 +26,8 @@ from picsong_tpu_torch.engine.batch import BatchCodec
 from picsong_tpu_torch.engine.pipeline import TorchCodec
 from picsong_tpu_torch import kernels
 from picsong_tpu_torch.entropy import bpc, bpc_cuda
-from picsong_tpu_torch.tools import probe, probe2
+from picsong_tpu_torch.tools import goldens, probe, probe2
+from picsong_tpu_torch.transform import dwt_cuda
 from torch_twins import J
 
 pytestmark = pytest.mark.cuda
@@ -373,16 +374,18 @@ def test_frame_parallel_video_on_cuda_equals_one_device(cuda, tmp_path):
 
 
 class _Spy:
-    """The kernel library, recording each BPC launch's stream argument and
-    the device current while it launches."""
+    """The kernel library, recording each launch's stream argument and the
+    device current while it launches, for the entry points named
+    `prefix`*."""
 
-    def __init__(self):
+    def __init__(self, prefix="picsong_bpc_"):
         self.lib = kernels.library()
+        self.prefix = prefix
         self.calls = []
 
     def __getattr__(self, name):
         fn = getattr(self.lib, name)
-        if not name.startswith("picsong_bpc_"):
+        if not name.startswith(self.prefix):
             return fn
 
         def launch(*args):
@@ -433,3 +436,129 @@ def test_launch_on_second_card_goes_to_its_stream(cuda):
     with torch.cuda.device(0):
         calls = _spied_round_trip(second)
     assert calls == [(torch.cuda.current_stream(second).cuda_stream, 1)] * 2
+
+
+# -- X2 / X4: the transform kernels ------------------------------------------
+
+def _dwt_cfg(h, w, rgb=False, lossy=False, qs=1.0, wl=3, bits=8,
+             signed=False):
+    return CodecConfig(width=w, height=h, wavelet_levels=wl, is_lossy=lossy,
+                       qs=qs, is_rgb=rgb, components=3 if rgb else 1,
+                       bit_depth=bits, bps=bits, is_signed=signed)
+
+
+def _dwt_samples(cfg, frames=0, seed=5):
+    """Sample planes of the configuration on the CPU: (frames, 3, h, w)
+    RGB batches as strided views of one tensor."""
+    peak = (1 << cfg.bit_depth) - 1
+    n = max(frames, 1) * (3 if cfg.is_rgb else 1)
+    planes = np.stack([goldens.make_image(cfg.height, seed=seed + k,
+                                          width=cfg.width, peak=peak)
+                       for k in range(n)])
+    if cfg.is_signed:
+        planes = (planes.astype(np.int32) - (peak + 1) // 2).astype(
+            np.int8 if cfg.bit_depth <= 8 else np.int16)
+    t = torch.from_numpy(planes).reshape(
+        *((frames,) if frames else ()), *((3,) if cfg.is_rgb else ()),
+        cfg.height, cfg.width)
+    return list(t.unbind(-3)) if cfg.is_rgb else [t]
+
+
+DWT_CASES = [
+    # (h, w, frames, rgb, lossy, qs, wl, bits, signed)
+    *[(256, 384, 0, False, False, 1.0, wl, 8, False) for wl in range(1, 6)],
+    *[(256, 384, 0, False, True, qs, 3, 8, False) for qs in (1.0, 0.5, 0.7)],
+    (512, 512, 0, False, True, 1.0, 5, 8, False),
+    (192, 320, 0, False, False, 1.0, 2, 12, False),
+    (256, 256, 0, False, True, 1.0, 4, 16, False),
+    (256, 256, 0, False, True, 0.5, 3, 16, True),
+    (256, 256, 0, False, False, 1.0, 5, 8, True),
+    (256, 320, 0, True, False, 1.0, 5, 8, False),
+    (256, 320, 0, True, True, 1.0, 3, 8, False),
+    (256, 320, 0, True, True, 0.7, 2, 16, False),
+    (192, 256, 3, False, False, 1.0, 3, 8, False),
+    (192, 256, 2, True, True, 0.5, 4, 8, False),
+]
+
+
+@pytest.mark.parametrize("h,w,frames,rgb,lossy,qs,wl,bits,signed",
+                         DWT_CASES)
+def test_dwt_kernels_match_plain(cuda, h, w, frames, rgb, lossy, qs, wl,
+                                 bits, signed):
+    """X2 and X4 on the card == their plain versions on the CPU: the
+    codeblocks, the maximum and the samples, one launch a call."""
+    cfg = _dwt_cfg(h, w, rgb, lossy, qs, wl, bits, signed)
+    samples = _dwt_samples(cfg, frames)
+    want, want_top = dwt_cuda.forward(samples, cfg)
+    before = (dwt_cuda.FORWARD_LAUNCHES, dwt_cuda.REVERSE_LAUNCHES)
+    blocks, top = dwt_cuda.forward([s.to(cuda) for s in samples], cfg)
+    back = dwt_cuda.reverse(blocks, cfg)
+    torch.cuda.synchronize()
+    assert (dwt_cuda.FORWARD_LAUNCHES, dwt_cuda.REVERSE_LAUNCHES) == (
+        before[0] + 1, before[1] + 1)
+    assert int(top) == int(want_top)
+    for b, w_ in zip(blocks, want):
+        assert torch.equal(b.cpu(), w_)
+    for b, w_ in zip(back, dwt_cuda.reverse(want, cfg)):
+        assert b.dtype == w_.dtype and torch.equal(b.cpu(), w_)
+    if not lossy:
+        for b, s_ in zip(back, samples):
+            assert torch.equal(b.cpu(), s_)
+
+
+def test_codecs_run_the_dwt_kernels(cuda):
+    """TorchCodec and BatchCodec on the card launch X2 and X4, with the
+    CPU codec's results; the wrapper refuses a CUDA tensor of another
+    type instead of falling back."""
+    cfg = _dwt_cfg(192, 256, rgb=True, lossy=True, wl=3)
+    luts = [neutral_lut(PARAMS, 3, 2)]
+    samples = _dwt_samples(cfg)
+    dwt_cuda.reset_launches()
+    codec = TorchCodec(cfg, luts, PARAMS, cuda)
+    coded, n_planes = codec.encode_planes([s.to(cuda) for s in samples])
+    back = codec.decode_planes([(st, z, n_planes) for st, z in coded])
+    assert (dwt_cuda.FORWARD_LAUNCHES, dwt_cuda.REVERSE_LAUNCHES) == (1, 1)
+    host = TorchCodec(cfg, luts, PARAMS, "cpu")
+    want, n_host = host.encode_planes(samples)
+    assert n_planes == n_host
+    for (st, z), (ws, wz) in zip(coded, want):
+        assert torch.equal(st.cpu(), ws) and torch.equal(z.cpu(), wz)
+    for b, w_ in zip(back, host.decode_planes(
+            [(st, z, n_host) for st, z in want])):
+        assert torch.equal(b.cpu(), w_)
+    frames = torch.stack([torch.stack(_dwt_samples(cfg, seed=s))
+                          for s in (1, 2)])
+    batch = BatchCodec(cfg, luts, PARAMS, 2, cuda)
+    blocks, top = batch.prep_batch(frames.to(cuda))
+    out = batch.decode_batch(batch.encode_blocks(
+        blocks, bpc.planes_for_magnitude(int(top))),
+        bpc.planes_for_magnitude(int(top)))
+    assert (dwt_cuda.FORWARD_LAUNCHES, dwt_cuda.REVERSE_LAUNCHES) == (2, 2)
+    cpu = BatchCodec(cfg, luts, PARAMS, 2, "cpu")
+    blocks_h, top_h = cpu.prep_batch(frames)
+    assert int(top) == int(top_h)
+    for b, w_ in zip(blocks, blocks_h):
+        assert torch.equal(b.cpu(), w_)
+    n_h = bpc.planes_for_magnitude(int(top_h))
+    assert torch.equal(out.cpu(), cpu.decode_batch(
+        cpu.encode_blocks(blocks_h, n_h), n_h))
+    with pytest.raises(TypeError, match="uint8"):
+        dwt_cuda.forward([s.to(cuda).int() for s in samples], cfg)
+
+
+def test_dwt_launch_goes_to_the_current_stream(cuda):
+    """Under a non-default current stream X2 and X4 launch on that stream,
+    with the plain version's results."""
+    cfg = _dwt_cfg(256, 256, lossy=True, wl=4)
+    samples = _dwt_samples(cfg)
+    spy = _Spy("picsong_dwt_")
+    side = torch.cuda.Stream(cuda)
+    with torch.cuda.stream(side):
+        blocks, top = dwt_cuda.forward([s.to(cuda) for s in samples], cfg,
+                                       lib=spy)
+        back = dwt_cuda.reverse(blocks, cfg, lib=spy)
+    torch.cuda.synchronize()
+    assert spy.calls == [(side.cuda_stream, torch.cuda.current_device())] * 2
+    want, want_top = dwt_cuda.forward(samples, cfg)
+    assert int(top) == int(want_top) and torch.equal(blocks[0].cpu(), want[0])
+    assert torch.equal(back[0].cpu(), dwt_cuda.reverse(want, cfg)[0])

@@ -1,0 +1,354 @@
+"""The transform layers X2 and X4 (`transform/dwt_cuda.py`) on the CPU: the
+plain version the kernels are held to, against TPUCodec's device programs
+(`_prep_*` + `_dwt_tile`, `_untile_idwt` + `_finish_*`, on JAX's CPU) and
+the NumPy oracle; the wrapper's checks and bound; and a model of the
+kernels' tiling with halos against whole-plane lifting.
+
+Tolerances: the integer paths (5/3, RCT) are exact against both. The 9/7
+path is exact against the oracle; TPUCodec's XLA:CPU 9/7 drifts (ROADMAP
+queue 3), so against it the gray quantized coefficients may differ by +-1
+(in at most 1e-4 of the positions at 8 bits, as in
+tests/test_torch_lossy.py; the drift grows with the coefficients, 7 of
+8192 at 16 bits), and its decoded samples stay within 0.05 dB of the
+port's (PSNR against the input).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from picsong_tpu.engine.pipeline import TPUCodec
+from picsong_tpu.reference import codec as ocodec
+from picsong_tpu.reference import dwt as odwt
+from picsong_tpu_torch.core import spec
+from picsong_tpu_torch.core.header import CodecConfig
+from picsong_tpu_torch.core.lut import LUTParams, neutral_lut
+from picsong_tpu_torch.transform import dwt, dwt_cuda
+from test_torch_rgb_depth import _blas_contracts_ict
+from torch_twins import J
+
+PARAMS = LUTParams()
+H, W = 64, 128
+
+
+def _samples(rng, cfg, lead=()):
+    """Samples of the configuration's type and range: a smooth field plus
+    noise, (*lead, H, W) per component."""
+    lo, hi = dwt_cuda.sample_range(cfg)
+    y, x = np.mgrid[0:H, 0:W]
+    span = hi - lo
+    base = (lo + span / 2 + span / 3 * np.sin(x / 9.0) * np.cos(y / 13.0)
+            + rng.normal(0, span / 32, size=(*lead, H, W)))
+    dtype = {torch.uint8: np.uint8, torch.int8: np.int8,
+             torch.uint16: np.uint16, torch.int16: np.int16}[
+        dwt_cuda.sample_dtype(cfg)]
+    return [np.clip(base + 7 * c, lo, hi).astype(dtype)
+            for c in range(3 if cfg.is_rgb else 1)]
+
+
+def _cfg(rgb=False, lossy=False, qs=1.0, wl=3, depth=8, signed=False):
+    return CodecConfig(width=W, height=H, wavelet_levels=wl, is_lossy=lossy,
+                       qs=qs, is_rgb=rgb, components=3 if rgb else 1,
+                       bit_depth=depth, bps=depth, is_signed=signed)
+
+
+def _oracle_forward(planes, cfg):
+    off = dwt_cuda.offset(cfg)
+    shifted = [p.astype(np.int32) - off for p in planes]
+    if cfg.is_rgb:
+        comps = (ocodec.ict_forward(*(s.astype(np.float32) for s in shifted))
+                 if cfg.is_lossy else ocodec.rct_forward(*shifted))
+    else:
+        comps = [shifted[0].astype(np.float32) if cfg.is_lossy
+                 else shifted[0]]
+    return [ocodec.plane_to_codeblocks(odwt.dwt_forward(
+        c, cfg.wavelet_levels, cfg.is_lossy, cfg.qs).astype(np.int32))
+        for c in comps]
+
+
+def _oracle_reverse(blocks, cfg):
+    """`reference/codec.py` decode_image's planes and finish, uncropped."""
+    off = dwt_cuda.offset(cfg)
+    mn, mx = dwt_cuda.sample_range(cfg)
+    planes = [odwt.dwt_reverse(ocodec.codeblocks_to_plane(b, H, W),
+                               cfg.wavelet_levels, cfg.is_lossy, cfg.qs)
+              for b in blocks]
+    if cfg.is_rgb:
+        rgb = (ocodec.ict_inverse(*planes) if cfg.is_lossy
+               else ocodec.rct_inverse(*(p.astype(np.int32) for p in planes)))
+        return [np.clip(p.astype(np.int32) + off, mn, mx) for p in rgb]
+    if cfg.is_lossy:
+        return [np.clip(np.rint(planes[0] + np.float32(off)
+                                + np.float32(0.01)), mn, mx)]
+    return [np.clip(planes[0].astype(np.int32) + off, mn, mx)]
+
+
+def _jax(planes, blocks, cfg):
+    """TPUCodec's forward blocks and maximum of `planes`, and its decode of
+    the port's `blocks`."""
+    jc = TPUCodec(J(cfg), [neutral_lut(PARAMS, cfg.wavelet_levels, 2)],
+                  J(PARAMS))
+    arrays = [jnp.asarray(p) for p in planes]
+    comps = (jc._prep_rgb(*arrays) if cfg.is_rgb
+             else [jc._prep_gray(arrays[0])])
+    tiled = [jc._dwt_tile(c) for c in comps]
+    back = [jc._untile_idwt(jnp.asarray(b.numpy())) for b in blocks]
+    out = jc._finish_rgb(*back) if cfg.is_rgb else [jc._finish_gray(back[0])]
+    return ([np.asarray(b) for b, _ in tiled],
+            max(int(m) for _, m in tiled), [np.asarray(o) for o in out])
+
+
+def _psnr(a, b, peak):
+    err = a.astype(np.float64) - b.astype(np.float64)
+    return 10 * np.log10(peak ** 2 / max(float(np.mean(err * err)), 1e-12))
+
+
+CASES = [
+    # (rgb, lossy, qs, wl, depth, signed)
+    *[(False, False, 1.0, wl, 8, False) for wl in (1, 2, 3, 4, 5)],
+    (False, True, 1.0, 3, 8, False),
+    (False, True, 0.5, 5, 8, False),
+    (False, False, 1.0, 2, 12, False),
+    (False, True, 1.0, 3, 16, False),
+    (False, False, 1.0, 4, 8, True),
+    (False, True, 0.5, 2, 16, True),
+    (False, True, 1.0, 1, 12, True),
+    (True, False, 1.0, 2, 8, False),
+    (True, True, 1.0, 3, 8, False),
+    (True, True, 0.5, 5, 8, False),
+    (True, False, 1.0, 1, 16, False),
+]
+
+
+@pytest.mark.parametrize("rgb,lossy,qs,wl,depth,signed", CASES)
+def test_layers_match_oracle_and_tpu_codec(rgb, lossy, qs, wl, depth,
+                                           signed):
+    cfg = _cfg(rgb, lossy, qs, wl, depth, signed)
+    planes = _samples(np.random.default_rng(wl + depth + 10 * rgb), cfg)
+    blocks, top = dwt_cuda.forward([torch.from_numpy(p) for p in planes],
+                                   cfg)
+    assert top.dtype == torch.int32 and top.dim() == 0
+    assert int(top) == max(int(b.abs().max()) for b in blocks)
+    back = dwt_cuda.reverse(blocks, cfg)
+    assert all(b.dtype == dwt_cuda.sample_dtype(cfg) for b in back)
+    oracle_ok = not (rgb and lossy) or _blas_contracts_ict()
+    if oracle_ok:
+        for got, want in zip(blocks, _oracle_forward(planes, cfg)):
+            assert np.array_equal(got.numpy(), want)
+        for got, want in zip(back, _oracle_reverse(
+                [b.numpy() for b in blocks], cfg)):
+            assert np.array_equal(got.numpy(), want)
+    j_blocks, j_top, j_back = _jax(planes, blocks, cfg)
+    if not lossy:
+        assert int(top) == j_top
+        for got, want in zip(blocks, j_blocks):
+            assert np.array_equal(got.numpy(), want)
+        for got, want, p in zip(back, j_back, planes):
+            assert np.array_equal(got.numpy(), want)
+            assert np.array_equal(got.numpy(), p)          # lossless
+        return
+    if not rgb:         # XLA:CPU's ICT is not the fused chain
+        diff = np.abs(blocks[0].numpy().astype(np.int64) - j_blocks[0])
+        assert diff.max() <= 1
+        if depth == 8:
+            assert np.count_nonzero(diff) <= 1e-4 * diff.size
+    peak = float((1 << depth) - 1)
+    for got, want, p in zip(back, j_back, planes):
+        assert (_psnr(want, p, peak)
+                >= _psnr(got.numpy(), p, peak) - 0.05)
+
+
+@pytest.mark.parametrize("rgb,lossy,qs,wl", [(False, False, 1.0, 3),
+                                             (True, True, 0.5, 2),
+                                             (True, False, 1.0, 4)])
+def test_batch_frames_equal_images(rgb, lossy, qs, wl):
+    """A (B, H, W) or (B, 3, H, W) batch (its components strided views of
+    one tensor) -> each frame's blocks and samples equal to the frame coded
+    alone."""
+    cfg = _cfg(rgb, lossy, qs, wl)
+    planes = _samples(np.random.default_rng(3), cfg, lead=(3,))
+    frames = torch.from_numpy(np.stack(planes, axis=1) if rgb else planes[0])
+    samples = list(frames.unbind(1)) if rgb else [frames]
+    if rgb:
+        assert samples[0].stride(0) == 3 * H * W
+    blocks, top = dwt_cuda.forward(samples, cfg)
+    back = dwt_cuda.reverse(blocks, cfg)
+    tops = []
+    for f in range(3):
+        one, t = dwt_cuda.forward([s[f] for s in samples], cfg)
+        tops.append(int(t))
+        for b, o in zip(blocks, one):
+            assert torch.equal(b[f], o)
+        for b, o in zip(back, dwt_cuda.reverse(one, cfg)):
+            assert torch.equal(b[f], o)
+    assert int(top) == max(tops)
+
+
+def test_wrapper_rejects_what_the_kernels_do_not_take():
+    cfg = _cfg(wl=3)
+    good = torch.zeros((H, W), dtype=torch.uint8)
+    with pytest.raises(ValueError, match="device meta"):
+        dwt_cuda.forward([good.to("meta")], cfg)
+    with pytest.raises(ValueError, match="device meta"):
+        dwt_cuda.reverse([torch.zeros((2, 64, 64), dtype=torch.int32,
+                                      device="meta")], cfg)
+    with pytest.raises(TypeError, match="uint8, int8, uint16 or int16"):
+        dwt_cuda.forward([good.to(torch.int32)], cfg)
+    with pytest.raises(TypeError, match="int32"):
+        dwt_cuda.reverse([torch.zeros((2, 64, 64), dtype=torch.int64)], cfg)
+    with pytest.raises(ValueError, match="shape"):
+        dwt_cuda.forward([torch.zeros((H, 100), dtype=torch.uint8)], cfg)
+    with pytest.raises(ValueError, match="shape"):
+        dwt_cuda.forward([torch.zeros((2, 2, H, W), dtype=torch.uint8)], cfg)
+    with pytest.raises(ValueError, match="multiples of 128"):
+        dwt_cuda.forward([good], _cfg(wl=7))
+    with pytest.raises(ValueError, match="contiguous"):
+        dwt_cuda.forward([torch.zeros((W, H), dtype=torch.uint8).t()], cfg)
+    with pytest.raises(ValueError, match="contiguous"):
+        dwt_cuda.reverse([torch.zeros((2, 64, 64), dtype=torch.int32)
+                          .transpose(1, 2)], cfg)
+    with pytest.raises(ValueError, match="expected 3"):
+        dwt_cuda.forward([good], _cfg(rgb=True))
+
+
+def test_bound_counts_the_bytes():
+    """The samples read once plus the int32 codeblocks written once, over
+    3.35 TB/s (meta tensors: shapes only)."""
+    gray = _cfg(wl=5)
+    plane = [torch.empty((2048, 2048), dtype=torch.uint8, device="meta")]
+    ms, by = dwt_cuda.bound_ms(plane, gray)
+    assert by == "bytes" and ms == pytest.approx(2048 * 2048 * 5 / 3.35e9)
+    assert ms == pytest.approx(0.00626, abs=1e-5)
+    rgb = [torch.empty((2560, 2048), dtype=torch.uint8, device="meta")] * 3
+    ms, by = dwt_cuda.bound_ms(rgb, _cfg(rgb=True, lossy=True, wl=5))
+    assert by == "bytes" and ms == pytest.approx(3 * 2048 * 2560 * 5 / 3.35e9)
+    assert ms == pytest.approx(0.0235, abs=1e-4)
+
+
+# -- a model of the kernels' tiling ----------------------------------------
+
+def _step(t, vert, par, lines, g0, n, f):
+    """csrc/dwt_common.cuh lift_step on a numpy tile: positions of parity
+    `par` along the axis (rows if `vert`), on `lines` across it; the
+    neighbour rule on the plane index g0 + position, clamped to the tile."""
+    side = t.shape[0]
+    pos = np.arange(par, side, 2)
+    g = g0 + pos
+    if par:
+        a = pos - 1
+        b = np.where((g + 1 < n) & (pos + 1 < side), pos + 1, pos - 1)
+    else:
+        b = pos + 1
+        a = np.where((g > 0) & (pos > 0), pos - 1, pos + 1)
+
+    def at(p):
+        return np.ix_(p, lines) if vert else np.ix_(lines, p)
+    t[at(pos)] = f(t[at(pos)], t[at(a)], t[at(b)])
+
+
+def _f32(*c):
+    return [np.float32(x) for x in c]
+
+
+def _lift(t, vert, lines, g0, n, lossy, forward, scale_odd):
+    """dwt_common.cuh lift_forward / lift_reverse."""
+    al, be, ga, de, k1, k2 = _f32(spec.I97_ALPHA, spec.I97_BETA,
+                                  spec.I97_GAMMA, spec.I97_DELTA, spec.I97_K1,
+                                  spec.I97_K2)
+    if not lossy:
+        steps = ([(1, lambda x, a, b: x - ((a + b) >> 1)),
+                  (0, lambda x, a, b: x + ((a + b + 2) >> 2))] if forward
+                 else [(0, lambda x, a, b: x - ((a + b + 2) >> 2)),
+                       (1, lambda x, a, b: x + ((a + b) >> 1))])
+    elif forward:
+        steps = [(1, lambda x, a, b: x + (a + b) * al),
+                 (0, lambda x, a, b: x + (a + b) * be),
+                 (1, lambda x, a, b: x + (a + b) * ga),
+                 (0, lambda x, a, b: (x + (a + b) * de) * k2)]
+        if scale_odd:
+            steps.append((1, lambda x, a, b: x * k1))
+    else:
+        steps = ([(1, lambda x, a, b: x / k1)] if scale_odd else []) + [
+            (0, lambda x, a, b: x / k2 - (a + b) * de),
+            (1, lambda x, a, b: x - (a + b) * ga),
+            (0, lambda x, a, b: x - (a + b) * be),
+            (1, lambda x, a, b: x - (a + b) * al)]
+    for par, f in steps:
+        _step(t, vert, par, lines, g0, n, f)
+
+
+def _tiles(h, w):
+    return [(y0, x0) for y0 in range(0, h, dwt_cuda.TILE)
+            for x0 in range(0, w, dwt_cuda.TILE)]
+
+
+def _model_forward_level(plane, lossy):
+    """One level of csrc/dwt_forward.cu on a numpy plane -> (ll, hl, lh,
+    hh), unquantized."""
+    h, w = plane.shape
+    tile, halo = dwt_cuda.TILE, dwt_cuda.HALO[lossy]
+    side = tile + 2 * halo
+    out = np.zeros_like(plane)
+    for y0, x0 in _tiles(h, w):
+        t = np.zeros((side, side), plane.dtype)
+        gy, gx = np.arange(side) + y0 - halo, np.arange(side) + x0 - halo
+        iy, ix = (gy >= 0) & (gy < h), (gx >= 0) & (gx < w)
+        t[np.ix_(iy, ix)] = plane[np.ix_(gy[iy], gx[ix])]
+        _lift(t, True, np.arange(side), y0 - halo, h, lossy, True, True)
+        _lift(t, False, np.arange(halo, halo + tile), x0 - halo, w, lossy,
+              True, False)
+        ny, nx = min(tile, h - y0), min(tile, w - x0)
+        out[y0:y0 + ny, x0:x0 + nx] = t[halo:halo + ny, halo:halo + nx]
+    if lossy:
+        out[:, 1::2] *= np.float32(spec.I97_K1)
+    return out[0::2, 0::2], out[0::2, 1::2], out[1::2, 0::2], out[1::2, 1::2]
+
+
+def _model_reverse_level(ll, hl, lh, hh, lossy):
+    """One level of csrc/dwt_reverse.cu before its finish -> the plane."""
+    h, w = 2 * ll.shape[0], 2 * ll.shape[1]
+    tile, halo = dwt_cuda.TILE, dwt_cuda.HALO[lossy]
+    side = tile + 2 * halo
+    full = np.zeros((h, w), ll.dtype)
+    full[0::2, 0::2], full[0::2, 1::2] = ll, hl
+    full[1::2, 0::2], full[1::2, 1::2] = lh, hh
+    if lossy:
+        full[:, 1::2] /= np.float32(spec.I97_K1)
+    out = np.zeros_like(full)
+    for y0, x0 in _tiles(h, w):
+        t = np.zeros((side, side), full.dtype)
+        gy, gx = np.arange(side) + y0 - halo, np.arange(side) + x0 - halo
+        iy, ix = (gy >= 0) & (gy < h), (gx >= 0) & (gx < w)
+        t[np.ix_(iy, ix)] = full[np.ix_(gy[iy], gx[ix])]
+        _lift(t, False, np.arange(side), x0 - halo, w, lossy, False, False)
+        _lift(t, True, np.arange(halo, halo + tile), y0 - halo, h, lossy,
+              False, True)
+        ny, nx = min(tile, h - y0), min(tile, w - x0)
+        out[y0:y0 + ny, x0:x0 + nx] = t[halo:halo + ny, halo:halo + nx]
+    return out
+
+
+@pytest.mark.parametrize("lossy", [False, True])
+def test_tiling_model_equals_whole_plane_lifting(lossy):
+    """Every level of a 192x320 plane (tiles straddling the plane's edge at
+    96x160 and below, planes smaller than a tile from 48x80 on, down to
+    6x10), both ways, equals the whole-plane lifting of transform/dwt.py."""
+    rng = np.random.default_rng(int(lossy))
+    if lossy:
+        cur = (rng.normal(0, 60, (192, 320))
+               * 2.0 ** rng.integers(-4, 5, (192, 320))).astype(np.float32)
+    else:
+        cur = rng.integers(-40000, 40000, (192, 320)).astype(np.int32)
+    for level in range(5):
+        want = dwt.lift_horizontal(*dwt.lift_vertical(
+            torch.from_numpy(cur), lossy), lossy)
+        got = _model_forward_level(cur, lossy)
+        for g, w_ in zip(got, want):
+            assert np.array_equal(g, w_.numpy()), f"forward level {level}"
+        back = _model_reverse_level(*got, lossy)
+        want_back = dwt.unlift_vertical(*dwt.unlift_horizontal(
+            *(torch.from_numpy(np.ascontiguousarray(b)) for b in got),
+            lossy), lossy)
+        assert np.array_equal(back, want_back.numpy()), f"reverse level {level}"
+        cur = np.ascontiguousarray(got[0])

@@ -27,6 +27,7 @@ from picsong_tpu_torch.core.lut import LUTParams, load_luts, neutral_lut
 from picsong_tpu_torch.engine import cli
 from picsong_tpu_torch.engine.pipeline import TorchCodec
 from picsong_tpu_torch.transform import dwt as tdwt
+from picsong_tpu_torch.transform import dwt_cuda
 
 from torch_twins import J
 
@@ -106,7 +107,7 @@ def test_lossy_against_tpu_codec_within_tolerance():
     jc = TPUCodec(J(cfg), luts, J(params))
 
     plane = torch.from_numpy(np.asarray(img))
-    q_torch = tc._dwt_tile_impl(tc._prep_gray_impl(plane))[0].numpy()
+    q_torch = dwt_cuda.forward([plane], cfg)[0][0].numpy()
     q_jax = np.asarray(jc._dwt_tile(jc._prep_gray(jnp.asarray(img)))[0])
     diff = np.abs(q_torch.astype(np.int64) - q_jax)
     assert diff.max() <= 1

@@ -5,8 +5,8 @@ planar RAW CLI, and the 16-bit raw-copy boundary.
 Codestreams are compared byte for byte (tolerance 0). The integer paths
 (RCT, lossless high depth) are also byte-equal to TPUCodec and round-trip
 bit-exactly. The ICT is computed as the oracle rounds it when NumPy's BLAS
-contracts its float32 `tensordot` into FMAs (see `engine/pipeline.py`
-`_fma_row`), so lossy RGB bytes equal the oracle's; the lossy RGB byte
+contracts its float32 `tensordot` into FMAs (see `transform/dwt_cuda.py`
+`fma_row`), so lossy RGB bytes equal the oracle's; the lossy RGB byte
 tests check that premise first and skip, saying so, on a BLAS without
 it. TPUCodec's XLA:CPU float order differs from both, so it is held only
 by PSNR on the lossy paths.
@@ -86,7 +86,7 @@ def test_rct_lossless_padded_16bit_round_trip():
 def _blas_contracts_ict() -> bool:
     """Whether the oracle's float32 ICT (a NumPy `tensordot`) differs from
     its unfused float32 evaluation on random 8-bit samples, i.e. whether
-    NumPy's BLAS contracts it into FMAs as `_fma_row` assumes."""
+    NumPy's BLAS contracts it into FMAs as `fma_row` assumes."""
     r, g, b = (np.random.default_rng(0).integers(-128, 128, (3, 4096))
                .astype(np.float32))
     m = np.asarray(spec.ICT_FORWARD, np.float32)
