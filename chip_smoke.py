@@ -20,6 +20,13 @@ or of the JAX package `picsong_tpu` is imported:
   8192x8192; then their times and the torch ops' at DWT_TIMED;
 - gray lossless 5/3, 2048x2048 at 5 wavelet levels, neutral and trained
   LUTs (the main path; then every layer of it is timed);
+- the codestream pack and unpack X3 (`assembly/pack.py`, `pack_phase`,
+  `pack_check`): the kernels' codestream (with a header, with the filler,
+  with the payload given) and their unpack of it byte-equal to the plain
+  version on random and edge batches (N = 0 and 1, all empty, all raw
+  copies, mixed sizes, N not a multiple of the kernels' chunks), on the
+  main path's streams, the 1080p video batch's and 8192^2's, timed at
+  those three (kernels, their device time in a CUDA graph, plain, bound);
 - the two probe kernels against their plain versions on the probes' own
   and on edge inputs, then the probe entry points;
 - gray lossy 9/7, 2048x2048 at 3 levels, qs 1 (BASELINE config 2),
@@ -83,10 +90,12 @@ timed the same way. Every comparison is exact except the lossy PSNR
 floors, which are stated where they are checked. The main path's layers
 include the device pack and unpack of the codestream (assembly/pack.py):
 only the packed bytes cross PCIe. Every CLI round trip must launch X2,
-X4 and its mode's BPC kernels (counts reset before it, read after). The
-kernels line's launches are the cp2 kernels' and X2/X4's on the 2048^2
-CLI round trips (the main path) and each other mode's on its own 2048^2
-round trips; the cp2 entries add, under
+X4, X3's pack and unpack and its mode's BPC kernels (counts reset before
+it, read after); every video and sharded workload one X3 pack a BPC
+encode launch and one unpack a decode launch. The
+kernels line's launches are the cp2 kernels', X2/X4's and X3's on the
+2048^2 CLI round trips (the main path) and each other mode's on its own
+2048^2 round trips; the cp2 entries add, under
 "video", each video workload's own launches (one CLI encode or decode,
 counts reset just before it) beside the kernels' time and bound at that
 workload's batch shape, under "sharded" each sharded workload's
@@ -101,8 +110,9 @@ Exits non-zero, printing no result, when there is no CUDA device or any
 check fails. Otherwise its last three lines are a JSON object with each
 kernel's launches, error, times and bound (the larger of its bytes over
 3.35 TB/s and its operations over 16.7 Tops/s int32 or 67 TFLOP/s
-float32: bpc_cuda.bound_ms, dwt_cuda.bound_ms, probe.bound_ms,
-probe2.bound_ms; X2/X4 also at each DWT_TIMED shape), the card's name
+float32: bpc_cuda.bound_ms, dwt_cuda.bound_ms, pack.bound_ms,
+probe.bound_ms, probe2.bound_ms; X2/X4 also at each DWT_TIMED shape, X3
+at its three timed shapes), the card's name
 and power limit, then
 {"ok": true, "device": {"platform": "gpu", ...}}.
 """
@@ -192,6 +202,39 @@ def kernel_ms(fn, iters=5):
                                        per=KERNEL_BATCH))
 
 
+def graph_ms(fn, iters=5):
+    """The device time a call of a kernel wrapper `fn`, without its host
+    time: KERNEL_BATCH calls captured in one CUDA graph, whose replay is
+    timed with CUDA events (median over `iters`) and divided by
+    KERNEL_BATCH. `fn` must neither synchronise nor copy from the host.
+    torch.profiler is not used for this: on the H100 machine it recorded
+    some of 20 back-to-back calls' kernels, or none."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(KERNEL_BATCH):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(iters):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        torch.cuda.synchronize()
+        out.append(a.elapsed_time(b) / KERNEL_BATCH)
+    del graph
+    torch.cuda.empty_cache()
+    return statistics.median(out)
+
+
 # the DWT phase's cases: (label, height, width, frames (0: an image), RGB,
 # lossy, qs, levels, bits, signed). 16-bit lossy at qs 1 is where a
 # one-ulp drift flips a truncation (coefficients reach ~1e5); 512^2 wl=5
@@ -250,24 +293,8 @@ def dwt_phase(dev, tag: str) -> dict:
     import torch
 
     from picsong_tpu_torch.core.header import CodecConfig
-    from picsong_tpu_torch.obs.trace import device_spans
     from picsong_tpu_torch.tools import goldens
     from picsong_tpu_torch.transform import dwt_cuda
-
-    def kernel_device_ms(fn, name: str) -> float:
-        """The device time of the `name` kernels' spans a call of `fn`
-        (its level launches), from torch.profiler over KERNEL_BATCH calls:
-        the kernels' own time, without the wrapper's host time."""
-        fn()
-        torch.cuda.synchronize()
-        with torch.profiler.profile(
-                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            for _ in range(KERNEL_BATCH):
-                fn()
-            torch.cuda.synchronize()
-        spans = [hi - lo for n, lo, hi in device_spans(prof) if name in n]
-        _require(bool(spans), f"the profiler saw the {name} launches")
-        return sum(spans) / KERNEL_BATCH
 
     started = time.perf_counter()
     err = {"forward": 0, "reverse": 0}
@@ -327,10 +354,10 @@ def dwt_phase(dev, tag: str) -> dict:
         t = times[label] = {
             "forward_ms": kernel_ms(lambda: dwt_cuda.forward(samples, cfg)),
             "reverse_ms": kernel_ms(lambda: dwt_cuda.reverse(blocks, cfg)),
-            "forward_device_ms": kernel_device_ms(
-                lambda: dwt_cuda.forward(samples, cfg), "dwt_forward_kernel"),
-            "reverse_device_ms": kernel_device_ms(
-                lambda: dwt_cuda.reverse(blocks, cfg), "dwt_reverse_kernel"),
+            "forward_device_ms": graph_ms(
+                lambda: dwt_cuda.forward(samples, cfg)),
+            "reverse_device_ms": graph_ms(
+                lambda: dwt_cuda.reverse(blocks, cfg)),
             "forward_plain_ms": statistics.median(device_ms(
                 lambda: dwt_cuda.forward_plain(samples, cfg), iters=3,
                 warm=1)),
@@ -341,13 +368,127 @@ def dwt_phase(dev, tag: str) -> dict:
         print(f"{tag} dwt {label}: X2 {t['forward_ms']:.4f} ms, X4 "
               f"{t['reverse_ms']:.4f} ms ({KERNEL_BATCH} back-to-back calls); "
               f"the kernels' device time {t['forward_device_ms']:.4f} / "
-              f"{t['reverse_device_ms']:.4f} ms a call (profiler); "
+              f"{t['reverse_device_ms']:.4f} ms a call (CUDA graph); "
               f"plain {t['forward_plain_ms']:.4f} / "
               f"{t['reverse_plain_ms']:.4f} ms; bound {bound:.5f} ms ({by}), "
               f"share {bound / t['forward_ms']:.4f} / "
               f"{bound / t['reverse_ms']:.4f}")
     print(f"{tag} DWT phase done in {time.perf_counter() - started:.1f} s")
     return {"err": err, "times": times}
+
+
+def pack_results() -> dict:
+    """The pack phase's record: max abs errors of the X3 kernels against
+    their plain version, and their times by shape label."""
+    return {"err": {"pack": 0, "unpack": 0}, "cases": 0, "times": {}}
+
+
+def pack_check(tag: str, label: str, streams, sizes, header, res: dict,
+               timed: bool = False) -> None:
+    """X3 (`assembly/pack.py`) on one batch of streams on the card: the
+    kernels' codestream (with `header`, with the filler, with the payload
+    given) and their unpack of it (streams and sizes) byte-equal to the
+    plain version on the same card tensors; the unpack equal to the
+    streams and sizes packed. With `timed`: the kernels' time over
+    KERNEL_BATCH back-to-back calls (payload given, so no read) and their
+    device time in a CUDA graph (`graph_ms`), the plain version's (median
+    of 3), the pack with its one read on the host clock, and the bound,
+    into res["times"][label]."""
+    import torch
+
+    from picsong_tpu_torch.assembly import pack
+
+    def diff(a, b) -> int:
+        _require(a.shape == b.shape, f"X3 {label}: shapes {tuple(a.shape)} "
+                 f"and {tuple(b.shape)}")
+        return int((a.long() - b.long()).abs().max()) if a.numel() else 0
+
+    n = streams.shape[0]
+    payload = int(sizes.long().sum()) - n
+    for h, p in ((header, None), (None, None), (header, payload)):
+        got = pack.pack_streams(streams, sizes, h, payload=p)
+        e = diff(got, pack.pack_streams_plain(streams, sizes, h, p))
+        res["err"]["pack"] = max(res["err"]["pack"], e)
+        _require(e == 0, f"X3 {label}: pack kernel == plain (header "
+                 f"{h is not None}, payload given {p is not None}), max abs "
+                 f"err {e}")
+    back = pack.unpack_streams(got, n, payload)
+    want = pack.unpack_streams_plain(got, n, payload)
+    torch.cuda.synchronize()
+    e = max(diff(a, b) for a, b in zip(back, want))
+    res["err"]["unpack"] = max(res["err"]["unpack"], e)
+    _require(e == 0, f"X3 {label}: unpack kernel == plain, max abs err {e}")
+    _require(torch.equal(back[0], streams) and torch.equal(back[1], sizes),
+             f"X3 {label}: unpack(pack(streams)) == streams, sizes")
+    res["cases"] += 1
+    if not timed:
+        return
+
+    def do_pack():
+        return pack.pack_streams(streams, sizes, header, payload=payload)
+
+    def do_unpack():
+        return pack.unpack_streams(got, n, payload)
+
+    bound = pack.bound_ms(n, payload)
+    t = res["times"][label] = {"codeblocks": n, "payload": payload}
+    for d, fn, plain in (
+            ("pack", do_pack, lambda: pack.pack_streams_plain(
+                streams, sizes, header, payload)),
+            ("unpack", do_unpack, lambda: pack.unpack_streams_plain(
+                got, n, payload))):
+        t[d] = {"ms": kernel_ms(fn), "device_ms": graph_ms(fn),
+                "plain_ms": statistics.median(device_ms(plain, iters=3,
+                                                        warm=1)),
+                "bound_ms": bound[d][0], "bound_by": bound[d][1]}
+    t["pack"]["one_read_host_ms"] = statistics.median(host_ms(
+        lambda: pack.pack_streams(streams, sizes, header)))
+    print(f"{tag} X3 {label}: {n} codeblocks, {payload} payload words; "
+          + "; ".join(f"{d} kernels {v['ms']:.4f} ms a call "
+                      f"({KERNEL_BATCH} back to back), device "
+                      f"{v['device_ms']:.4f} ms (CUDA graph), plain "
+                      f"{v['plain_ms']:.4f} "
+                      f"ms, bound {v['bound_ms']:.5f} ms ({v['bound_by']}), "
+                      f"share {v['bound_ms'] / v['ms']:.4f}"
+                      for d, v in t.items() if d in ("pack", "unpack"))
+          + f"; pack with its one read {t['pack']['one_read_host_ms']:.4f} "
+          "ms (host clock)")
+
+
+def pack_phase(dev, tag: str, res: dict) -> None:
+    """X3 against its plain version on random and edge batches: N = 0 and
+    1, all empty blocks, all raw copies (16-bit words up to 0xFFFF), mixed
+    sizes with both ends, a batch that is not a multiple of the scan's or
+    the copy's chunk; the main path, the video batch and 8192^2 are
+    checked where their streams are made (phases 5, 14, 13)."""
+    import numpy as np
+    import torch
+
+    from picsong_tpu_torch.core.header import CodecConfig, pack_header
+
+    started = time.perf_counter()
+    header = pack_header(CodecConfig(width=64, height=64))
+    for seed, (kind, n) in enumerate((("empty", 0), ("mixed", 1),
+                                      ("empty", 9), ("raw", 5),
+                                      ("mixed", 1500), ("mixed", 4097))):
+        rng = np.random.default_rng(40 + seed)
+        sizes = {"empty": np.ones(n), "raw": np.full(n, 4096),
+                 "mixed": rng.integers(1, 4097, size=n)}[kind].astype(
+                     np.int32)
+        if kind == "mixed":
+            sizes[:3] = (1, 4096, 2)[:n]
+        streams = np.full((n, 4096), -1, dtype=np.int32)
+        keep = np.arange(4096)[None, :] < sizes[:, None]
+        streams[keep] = rng.integers(0, 1 << 16, size=int(sizes.sum()),
+                                     dtype=np.int32)
+        streams[:, 0] = np.where(sizes == 1, 32,
+                                 rng.integers(0, 16, size=n))
+        pack_check(tag, f"{kind} N={n}", torch.from_numpy(streams).to(dev),
+                   torch.from_numpy(sizes).to(dev), header, res)
+    print(f"{tag} X3 pack phase: {res['cases']} random and edge batches "
+          f"byte-equal to the plain version both ways (max abs err pack "
+          f"{res['err']['pack']}, unpack {res['err']['unpack']}); "
+          f"{time.perf_counter() - started:.1f} s")
 
 
 # the video workloads: (name, width, height, frames, batch, RGB, LUT
@@ -361,21 +502,23 @@ VIDEO = (
 )
 
 
-def video_phase(dev, tag: str, err: dict) -> dict:
+def video_phase(dev, tag: str, err: dict, x3: dict) -> dict:
     """Each VIDEO workload, lossless wl=LEVELS, through `cli.main -video 1`:
     inputs from `goldens.make_frame` (a seed, integer arithmetic); for
     each LUT folder, one BPC encode and one decode launch per component
     and batch (counts reset before each CLI call and read after it; the
     first folder's counts are the workload's launches); the decoded file
     equal to the input; every
-    frame's codestream equal to `TorchCodec.encode` of that frame. With
+    frame's codestream equal to `TorchCodec.encode` of that frame; one X3
+    pack a BPC encode launch and one unpack a decode launch. With
     the first folder: the kernels on the first batch's codeblocks
     (component 0, B * ncb blocks) held to their plain versions on
     BIG_PICKS blocks spread over the batch (max errors into `err`), their
     time per launch over KERNEL_BATCH back-to-back launches and their
     bound; two encode -> decode runs through the engine's API with its
     stage times; on the first workload, one encode under torch.profiler
-    for the card's busy time. Returns the numbers by workload."""
+    for the card's busy time, and X3 (`pack_check`) on the first batch's
+    streams, timed into `x3`. Returns the numbers by workload."""
     import numpy as np
     import torch
 
@@ -383,6 +526,7 @@ def video_phase(dev, tag: str, err: dict) -> dict:
     from picsong_tpu_torch.core.image_io import (mirror_pad, read_codestream,
                                                  read_header_shorts,
                                                  read_raw_frame, read_sizes)
+    from picsong_tpu_torch.assembly import pack
     from picsong_tpu_torch.engine import cli, video
     from picsong_tpu_torch.engine.batch import BatchCodec
     from picsong_tpu_torch.engine.pipeline import TorchCodec
@@ -429,6 +573,7 @@ def video_phase(dev, tag: str, err: dict) -> dict:
                                         str(LEVELS), "-frames", str(n)]),
                             ("decode", ["-i", enc, "-o", dec])):
                 bpc_cuda.reset_launches()
+                pack.reset_launches()
                 t = time.perf_counter()
                 _require(cli.main(["-cd", "0" if d == "encode" else "1",
                                    *argv, "-video", "1", "-numberOfStreams",
@@ -442,7 +587,14 @@ def video_phase(dev, tag: str, err: dict) -> dict:
                 want["cp2"] = n_batches * n_comp
                 _require(counts == want, f"{label}: {d} launches {counts}, "
                          "one per component and batch")
+                x3_d = (pack.PACK_LAUNCHES if d == "encode"
+                        else pack.UNPACK_LAUNCHES)
+                _require(x3_d == n_batches * n_comp,
+                         f"{label}: X3 {'un' if d == 'decode' else ''}pack "
+                         f"launches {x3_d}, one per component and batch")
                 res.setdefault("launches", {}).setdefault(d, counts["cp2"])
+                res.setdefault("x3_launches", {}).setdefault(
+                    "pack" if d == "encode" else "unpack", x3_d)
             _require(read(dec) == read(raw),
                      f"{label}: CLI round trip bit-exact")
             cfg = unpack_header(read_header_shorts(enc))
@@ -499,6 +651,9 @@ def video_phase(dev, tag: str, err: dict) -> dict:
             err["cp2"]["decode"] = max(err["cp2"]["decode"], e)
             _require(e == 0, f"{label}: {BIG_PICKS} picked blocks, plain "
                      "decode of the kernel's streams == input")
+            if name == VIDEO[0][0]:
+                pack_check(tag, f"video {name} batch of {batch}", s_k, z_k,
+                           None, x3, timed=True)
             bound, by = bpc_cuda.bound_ms(blocks)
             k_enc = kernel_ms(lambda: bpc_cuda.encode_blocks(blocks, *a, **kw))
             k_dec = kernel_ms(lambda: bpc_cuda.decode_blocks(s_k, z_k, *a,
@@ -581,6 +736,7 @@ def multihost_worker(argv: list[str]) -> int:
     sys.modules["picsong_tpu"] = None
     import torch.distributed as dist
 
+    from picsong_tpu_torch.assembly import pack
     from picsong_tpu_torch.core.header import CodecConfig
     from picsong_tpu_torch.dist import multihost as mh
     from picsong_tpu_torch.engine import cli
@@ -598,6 +754,7 @@ def multihost_worker(argv: list[str]) -> int:
         mh.decode_video_multihost(f"{d}/warm.enc", f"{d}/warm.raw", cfg,
                                   luts, params, batch=batch, device=device)
         bpc_cuda.reset_launches()
+        pack.reset_launches()
         enc = mh.encode_video_multihost(f"{d}/in.raw", f"{d}/mh.enc", cfg,
                                         luts, params, n, batch=batch,
                                         device=device)
@@ -609,7 +766,9 @@ def multihost_worker(argv: list[str]) -> int:
             "rank": rank, "frames": enc.frames,
             "encode_wall_s": enc.wall_s, "decode_wall_s": dec.wall_s,
             "launches": {"encode": enc_launches,
-                         "decode": bpc_cuda.DECODE_LAUNCHES["cp2"]}}))
+                         "decode": bpc_cuda.DECODE_LAUNCHES["cp2"]},
+            "x3_launches": {"pack": pack.PACK_LAUNCHES,
+                            "unpack": pack.UNPACK_LAUNCHES}}))
     finally:
         dist.destroy_process_group()
     return 0
@@ -624,7 +783,8 @@ def sharded_phase(dev, tag: str, err: dict) -> dict:
       the unsharded decode (lossless: to the input), the BPC launches
       (counts reset just before the encode, read after it and after the
       decode) one per codeblock shard and component, none of another
-      mode; the kernels on shard 0's codeblocks timed, with their bound;
+      mode, and as many X3 packs and unpacks; the kernels on shard 0's
+      codeblocks timed, with their bound;
       on 2 shards, BIG_PICKS of them held to the plain coder;
     - device encode / decode and the CLI round trip at 2048^2 wl=5,
       unsharded and on 2 and 4 shards, in one call;
@@ -641,6 +801,7 @@ def sharded_phase(dev, tag: str, err: dict) -> dict:
     import numpy as np
     import torch
 
+    from picsong_tpu_torch.assembly import pack
     from picsong_tpu_torch.core.header import CodecConfig
     from picsong_tpu_torch.core.image_io import (mirror_pad, read_pgm,
                                                  write_pgm)
@@ -692,6 +853,14 @@ def sharded_phase(dev, tag: str, err: dict) -> dict:
         _require(counts == dict(dict.fromkeys(counts, 0), cp2=want),
                  f"{what}: launches {counts}, want {want} of cp2 only")
 
+    def x3_as_bpc(what):
+        """One X3 pack a BPC encode launch and one unpack a decode launch
+        since the counts were reset."""
+        got = (pack.PACK_LAUNCHES, pack.UNPACK_LAUNCHES)
+        want = (bpc_cuda.ENCODE_LAUNCHES["cp2"],
+                bpc_cuda.DECODE_LAUNCHES["cp2"])
+        _require(got == want, f"{what}: X3 launches {got}, want {want}")
+
     out = {"workloads": [], "times": {}}
     img = goldens.make_image(SIZE)
     rgb = [goldens.make_image(RGB_H, seed=s, width=RGB_W) for s in (5, 6, 7)]
@@ -724,12 +893,14 @@ def sharded_phase(dev, tag: str, err: dict) -> dict:
         n_comp = codec.n_components
         label = f"sharded {name} x{n}"
         bpc_cuda.reset_launches()
+        pack.reset_launches()
         got = codec.encode(pixels)
         enc = dict(bpc_cuda.ENCODE_LAUNCHES)
         got_back = codec.decode(got)
         dec = dict(bpc_cuda.DECODE_LAUNCHES)
         only_cp2(enc, len(codec.blocks) * n_comp, f"{label} encode")
         only_cp2(dec, len(codec.blocks) * n_comp, f"{label} decode")
+        x3_as_bpc(label)
         _require(len(got) == len(want) and all(
             np.array_equal(g, w) for g, w in zip(got, want)),
             f"{label}: codestream == the unsharded card codestream")
@@ -781,9 +952,11 @@ def sharded_phase(dev, tag: str, err: dict) -> dict:
         return enc, dec
 
     bpc_cuda.reset_launches()
+    pack.reset_launches()
     enc2, dec2 = cli_pair(2)
     only_cp2(dict(bpc_cuda.ENCODE_LAUNCHES), 2, "CLI -sharded 2 encode")
     only_cp2(dict(bpc_cuda.DECODE_LAUNCHES), 2, "CLI -sharded 2 decode")
+    x3_as_bpc("CLI -sharded 2")
     enc1, _ = cli_pair(1)
     _require(read(enc2) == read(enc1) and read(enc2 + "_SIZE")
              == read(enc1 + "_SIZE"), "CLI -sharded 2 file == unsharded")
@@ -834,6 +1007,7 @@ def sharded_phase(dev, tag: str, err: dict) -> dict:
             enc = os.path.join(d, f"v{devices}.enc")
             dec = os.path.join(d, f"v{devices}.raw")
             bpc_cuda.reset_launches()
+            pack.reset_launches()
             st = video.encode_video(raw, enc, vcfg, luts, params, n,
                                     batch=batch, devices=[dev] * devices)
             only_cp2(dict(bpc_cuda.ENCODE_LAUNCHES), n_batches * devices,
@@ -842,6 +1016,7 @@ def sharded_phase(dev, tag: str, err: dict) -> dict:
                                     batch=batch, devices=[dev] * devices)
             only_cp2(dict(bpc_cuda.DECODE_LAUNCHES), n_batches * devices,
                      f"video devices={devices} decode")
+            x3_as_bpc(f"video devices={devices}")
             _require(read(dec) == read(raw),
                      f"video devices={devices}: decode bit-exact")
             walls[devices]["encode"].append(st.wall_s)
@@ -915,6 +1090,11 @@ def sharded_phase(dev, tag: str, err: dict) -> dict:
               f"{sr.efficiency:.4f}")
     launches = {dr: sum(r["launches"][dr] for r in reports)
                 for dr in ("encode", "decode")}
+    x3_mh = {dr: sum(r["x3_launches"][dr] for r in reports)
+             for dr in ("pack", "unpack")}
+    _require((x3_mh["pack"], x3_mh["unpack"]) == (launches["encode"],
+                                                  launches["decode"]),
+             f"multi-host X3 launches {x3_mh}, one a BPC launch {launches}")
     if dev.type == "cuda":
         # each host codes its slab in batches of min(batch, slab frames)
         want = sum(-(-(b - a) // min(batch, b - a))
@@ -1382,22 +1562,24 @@ def main() -> int:
 
     def cli_pair(job):
         """One CLI encode and decode (the timed round trip: no read-back, no
-        check). Sets every BPC and DWT launch count to 0 first, reads them
-        after, and returns the launches of the job's BPC mode and of X2
-        ("forward") and X4 ("reverse"); no other BPC mode may have
-        launched."""
+        check). Sets every BPC, DWT and X3 launch count to 0 first, reads
+        them after, and returns the launches of the job's BPC mode, of X2
+        ("forward"), X4 ("reverse") and X3 ("pack", "unpack"); no other
+        BPC mode may have launched."""
         enc_args, dec_args, what, mode = job
         bpc_cuda.reset_launches()
         dwt_cuda.reset_launches()
+        pack.reset_launches()
         _require(cli.main(["-cd", "0", *enc_args]) == 0, f"CLI encode {what}")
         _require(cli.main(["-cd", "1", *dec_args]) == 0, f"CLI decode {what}")
         got = {"encode": bpc_cuda.ENCODE_LAUNCHES[mode],
                "decode": bpc_cuda.DECODE_LAUNCHES[mode],
                "forward": dwt_cuda.FORWARD_LAUNCHES,
-               "reverse": dwt_cuda.REVERSE_LAUNCHES}
+               "reverse": dwt_cuda.REVERSE_LAUNCHES,
+               "pack": pack.PACK_LAUNCHES, "unpack": pack.UNPACK_LAUNCHES}
         _require(min(got.values()) > 0,
-                 f"{what} path launched both {mode} BPC kernels, X2 and X4 "
-                 f"{got}")
+                 f"{what} path launched both {mode} BPC kernels, X2, X4 and "
+                 f"the X3 pack and unpack {got}")
         others = sum(bpc_cuda.ENCODE_LAUNCHES[m] + bpc_cuda.DECODE_LAUNCHES[m]
                      for m in modes if m != mode)
         _require(others == 0, f"{what} path launched only its {mode} kernels")
@@ -1425,19 +1607,21 @@ def main() -> int:
     # launches of each kernel variant on the paths that carry it
     launches = {m: {"encode": 0, "decode": 0} for m in modes}
     dwt_launches = {"forward": 0, "reverse": 0}
+    pack_launches = {"pack": 0, "unpack": 0}
     exact, enc_bytes = {}, {}
     for lut_folder in ("neutral", "trained"):
         enc, dec, job = gray_job(lut_folder)
         got = cli_pair(job)
         launches["cp2"] = add(launches["cp2"], got)
         dwt_launches = add(dwt_launches, got)
+        pack_launches = add(pack_launches, got)
         exact[lut_folder] = np.array_equal(read_pgm(dec), img)
         enc_bytes[lut_folder] = os.path.getsize(enc)
     _require(all(exact.values()), f"2048^2 CLI round trips bit-exact {exact}")
     print(f"{tag} {SIZE}^2 wl={LEVELS} CLI round trips bit-exact: neutral "
           f"{enc_bytes['neutral']} B, trained {enc_bytes['trained']} B; "
           f"kernel launches on the main path: BPC {launches['cp2']}, X2/X4 "
-          f"{dwt_launches}")
+          f"{dwt_launches}, X3 {pack_launches}")
 
     def oracle_picks(label, c, blocks, streams, sizes, key):
         """The first codeblock of every level and subband of the 2048^2
@@ -1477,6 +1661,13 @@ def main() -> int:
     print(f"{tag} {SIZE}^2 plane: {blocks.shape[0]} codeblocks, n_planes "
           f"{n_planes}, kernels byte-equal to plain; {n_picks} codeblocks "
           "(LL and every level/subband) byte-equal to the oracle")
+
+    # ---- 5b. X3, the pack and unpack kernels, vs plain --------------------
+    stamp("5b")
+    x3 = pack_results()
+    pack_phase(dev, tag, x3)
+    pack_check(tag, f"{SIZE}^2 wl={LEVELS} main path", streams, sizes,
+               pack_header(cfg), x3, timed=True)
 
     # ---- 6. times ----------------------------------------------------------
     stamp("6")
@@ -1546,13 +1737,17 @@ def main() -> int:
         "prep+DWT+tile (X2)": device_ms(
             lambda: dwt_cuda.forward([samples], cfg)),
         "BPC encode kernel": enc_kernel,
-        "device pack (one scalar read)": host_ms(
+        "device pack (X3 kernels, one scalar read)": host_ms(
             lambda: pack.pack_streams(streams, sizes, header)),
+        "device pack plain (torch ops, one scalar read)": host_ms(
+            lambda: pack.pack_streams_plain(streams, sizes, header)),
         "D2H packed codestream": host_ms(lambda: packed.cpu()),
         "H2D packed codestream": host_ms(
             lambda: torch.from_numpy(shorts.view(np.int16)).to(dev)),
-        "device unpack": device_ms(
+        "device unpack (X3 kernels)": device_ms(
             lambda: pack.unpack_streams(packed, codec.ncb, payload)),
+        "device unpack plain (torch ops)": device_ms(
+            lambda: pack.unpack_streams_plain(packed, codec.ncb, payload)),
         "BPC decode kernel": dec_kernel,
         "untile+IDWT+clamp (X4)": device_ms(
             lambda: dwt_cuda.reverse([blocks], cfg)),
@@ -1903,6 +2098,9 @@ def main() -> int:
         err[mode]["decode"] = max(err[mode]["decode"], e)
         _require(e == 0, f"{BIG}^2 {mode}: {BIG_PICKS} picked blocks, "
                  f"plain decode of the kernel's streams == input")
+        if mode == "cp2":
+            pack_check(tag, f"{BIG}^2 wl={LEVELS}", s_b, z_b,
+                       pack_header(cfg_b), x3, timed=True)
         bound, by = bpc_cuda.bound_ms(blocks_b)
         big_ms[mode] = {
             "encode": report(f"{BIG}^2 BPC encode kernel {mode}", device_ms(
@@ -1922,7 +2120,7 @@ def main() -> int:
     # ---- 14. video through the CLI (-video 1), one launch per component
     # and frame batch ------------------------------------------------------
     stamp("14")
-    vid = video_phase(dev, tag, err)
+    vid = video_phase(dev, tag, err, x3)
 
     # ---- 15. the distribution layer: sharded images, frame-parallel and
     # multi-host video, every shard on the card ----------------------------
@@ -2006,6 +2204,26 @@ def main() -> int:
                         "bound_ms": t["bound_ms"],
                         "bound_by": t["bound_by"]}
                        for label, t in dwt["times"].items()]})
+    # X3 at the main path's streams; launches on its two CLI round trips
+    main_x3 = x3["times"][f"{SIZE}^2 wl={LEVELS} main path"]
+    for d, line in (("pack", 1818), ("unpack", 1832)):
+        t = main_x3[d]
+        entries.append({
+            "name": d, "route": "cuda", "source": f"{src_dir}/pack.cu",
+            "replaces": f"{jax_src}:{line}",
+            "launches": pack_launches[d], "max_abs_err": x3["err"][d],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "device_ms": t["device_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"],
+            # no single PyTorch call computes the relocation
+            "library_ms": None,
+            "shapes": [{"workload": label, "codeblocks": v["codeblocks"],
+                        "payload": v["payload"], "ms": v[d]["ms"],
+                        "device_ms": v[d]["device_ms"],
+                        "plain_ms": v[d]["plain_ms"],
+                        "bound_ms": v[d]["bound_ms"],
+                        "bound_by": v[d]["bound_by"]}
+                       for label, v in x3["times"].items()]})
     for name, line in (("probe", 58), ("probe2", 54)):
         module = probe if name == "probe" else probe2
         bound, by = module.bound_ms(*(gpu(x) for x in module.inputs(0)))

@@ -20,12 +20,14 @@ Layer map (mirrors picsong_tpu):
   core/lut.py         LUT folder parser, neutral tables, group bases
   core/image_io.py    PGM/RAW/codestream files, mirror padding
   core/geometry.py    codeblock bands (host) and tiling (torch reshapes)
-  assembly/pack.py    codestream pack/unpack as torch ops on the device
+  assembly/pack.py    codestream pack/unpack (X3): CPU -> torch ops,
+                      CUDA -> the kernels of csrc/pack.cu
   transform/dwt.py    lifting DWT 5/3 (int32) and 9/7 (float32), both ways
   entropy/bpc.py      plain PyTorch BPC-PaCo (cp=2, cp=3, -k) + host metadata
   entropy/bpc_cuda.py device dispatch: CPU -> plain, CUDA -> the kernels
   csrc/               the CUDA C++ kernels (bpc_encode.cu, bpc_decode.cu,
-                      probe.cu, probe2.cu)
+                      dwt_forward.cu, dwt_reverse.cu, pack.cu, probe.cu,
+                      probe2.cu)
   kernels.py          nvcc build of csrc/ into build/ and the ctypes binding
   engine/pipeline.py  TorchCodec: gray/RGB, lossless/lossy, 8-16 bit images
   engine/batch.py     BatchCodec: B frames' codeblocks in one BPC launch

@@ -1,12 +1,20 @@
 """Codestream relocation on the codec's device: dense pack and unpack of
-the per-codeblock streams, as torch ops.
+the per-codeblock streams (X3).
 
-The reference needs a CUB prefix sum, a binary-search index LUT and a
-relocation kernel (BitStreamBuilder.cu); the layout itself is prefix-sum
-addressing, so here it is one `cumsum` over `sizes - 1` plus one gather
-(pack) or one scatter into a -1 filled buffer (unpack), as the JAX
-package's device pack does (`StagedBPC._pack_dense_impl` /
-`_unpack_dense_impl`). Only the packed bytes cross to or from the host.
+`pack_streams` / `unpack_streams` dispatch on the tensors' device: CPU
+tensors take the plain version (`pack_streams_plain` /
+`unpack_streams_plain`, torch ops: one `cumsum` over `sizes - 1`, then a
+gather (pack) or a scatter into a -1 filled buffer (unpack), as the JAX
+package's device pack does, `StagedBPC._pack_dense_impl` /
+`_unpack_dense_impl`); CUDA tensors take the hand-written kernels of
+`csrc/pack.cu` (a one-CTA prefix sum, then one warp per codeblock copying
+its words, the reference's InclusiveSum + buildBitStreamLUTBS in
+BitStreamBuilder.cu); anything else raises. There is no path from a CUDA
+tensor to the plain version. The kernels launch on the current stream of
+the tensors' device, under that device, and synchronise only to read the
+payload total when the caller does not give it. `PACK_LAUNCHES` /
+`UNPACK_LAUNCHES` count the calls that launched them. Only the packed
+bytes cross to or from the host.
 
 Wire layout (the reference's):
   shorts[0..8]    header (real values on the first component, 0xFFFF
@@ -27,17 +35,31 @@ host, and `join_frames` glues per-frame codestreams into one for upload
 (the JAX package's `fuse_packed`/`split_packed` and `_assemble_frame`).
 A row-sharded image (`dist/sharded.py`) is the same with parts of unequal
 block counts: each shard packs its share of the codeblocks, and
-`join_frames` glues the shares into the image's codestream.
+`join_frames` glues the shares into the image's codestream. Both stay
+host NumPy: they cut and glue bytes that are already on the host.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
+from .. import kernels
 from ..core import spec
+from ..entropy.bpc_cuda import BYTES_PER_S, _check
+from ..transform.dwt_cuda import _device_type
 
 HEADER_SHORTS = 9
+
+PACK_LAUNCHES = 0
+UNPACK_LAUNCHES = 0
+
+
+def reset_launches() -> None:
+    global PACK_LAUNCHES, UNPACK_LAUNCHES
+    PACK_LAUNCHES = UNPACK_LAUNCHES = 0
 
 
 def stream_length(n_blocks: int, payload: int) -> int:
@@ -53,12 +75,13 @@ def _as_int16(v: torch.Tensor) -> torch.Tensor:
     return (v - ((v >> 15) << 16)).to(torch.int16)
 
 
-def pack_streams(streams: torch.Tensor, sizes: torch.Tensor,
-                 header: np.ndarray | None,
-                 payload: int | None = None) -> torch.Tensor:
-    """(N, 4096) int32 streams + (N,) sizes -> the packed codestream, an
-    int16 tensor on the streams' device. Reads one scalar from the device,
-    the payload length, unless the caller gives it (`sizes.sum() - N`)."""
+def pack_streams_plain(streams: torch.Tensor, sizes: torch.Tensor,
+                       header: np.ndarray | None,
+                       payload: int | None = None) -> torch.Tensor:
+    """X3's pack as torch ops: (N, 4096) int32 streams + (N,) sizes -> the
+    packed codestream, an int16 tensor on the streams' device. Reads one
+    scalar from the device, the payload length, unless the caller gives
+    it (`sizes.sum() - N`)."""
     n = streams.shape[0]
     dev = streams.device
     counts = sizes.to(torch.int64) - 1
@@ -102,10 +125,10 @@ def block_fields(shorts: np.ndarray, n_blocks: int) -> tuple[np.ndarray,
     return msb, sizes
 
 
-def unpack_streams(stream: torch.Tensor, n_blocks: int,
-                   payload: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """A packed codestream (int16 tensor) of `n_blocks` codeblocks with
-    `payload` words after their MSB words (from `block_fields`) ->
+def unpack_streams_plain(stream: torch.Tensor, n_blocks: int,
+                         payload: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """X3's unpack as torch ops: a packed codestream (int16 tensor) of
+    `n_blocks` codeblocks with `payload` words after their MSB words ->
     ((N, 4096) int32 streams with -1 fill, (N,) int32 sizes), on the
     stream's device. Reads nothing back from the device."""
     dev = stream.device
@@ -125,6 +148,112 @@ def unpack_streams(stream: torch.Tensor, n_blocks: int,
         base = HEADER_SHORTS + 2 * n_blocks
         out.view(-1)[block * spec.CBLOCK_SIZE + within] = u[base:base + payload]
     return out, sizes
+
+
+# --------------------------------------------------------------------------
+# The dispatching entry points and the kernels
+# --------------------------------------------------------------------------
+
+def _check_payload(payload: int | None) -> None:
+    if payload is not None and payload < 0:
+        raise ValueError(f"payload must be >= 0, got {payload}")
+
+
+def pack_streams(streams: torch.Tensor, sizes: torch.Tensor,
+                 header: np.ndarray | None, payload: int | None = None,
+                 lib=None) -> torch.Tensor:
+    """(N, 4096) int32 streams + (N,) int32 sizes (1..4096) -> the packed
+    codestream of `stream_length(N, payload)` shorts, an int16 tensor on
+    the streams' device, with `header` (9 shorts) or the filler. Reads one
+    scalar from the device, the payload length, unless the caller gives
+    it (`sizes.sum() - N`). `lib` is the kernel library to launch
+    (default: the package's own)."""
+    global PACK_LAUNCHES
+    n = streams.shape[0] if streams.dim() else 0
+    _check(streams, "streams", (n, spec.CBLOCK_SIZE))
+    _check(sizes, "sizes", (n,))
+    _check_payload(payload)
+    if _device_type([streams, sizes], "X3") == "cpu":
+        return pack_streams_plain(streams, sizes, header, payload)
+    hdr = None
+    if header is not None:
+        hdr = np.ascontiguousarray(header, dtype=np.uint16)
+        if hdr.shape != (HEADER_SHORTS,):
+            raise ValueError(f"header must hold {HEADER_SHORTS} shorts, got "
+                             f"shape {hdr.shape}")
+        hdr = (ctypes.c_uint16 * HEADER_SHORTS)(*hdr.tolist())
+    dev = streams.device
+    # the worst case (every block a raw copy) when the total is unknown;
+    # the exact prefix is returned after the one read
+    capacity = (spec.CBLOCK_SIZE - 1) * n if payload is None else payload
+    out = torch.empty(stream_length(n, capacity), dtype=torch.int16,
+                      device=dev)
+    offsets = torch.empty(n + 1, dtype=torch.int64, device=dev)
+    lib = lib or kernels.library()
+    with torch.cuda.device(dev):
+        rc = lib.picsong_pack(
+            streams.data_ptr(), sizes.data_ptr(), n,
+            None if hdr is None else ctypes.addressof(hdr), capacity,
+            offsets.data_ptr(), out.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    PACK_LAUNCHES += 1
+    kernels.check(lib, rc, "pack launch")
+    if payload is None:
+        return out[:stream_length(n, int(offsets[n]))]
+    return out
+
+
+def unpack_streams(stream: torch.Tensor, n_blocks: int, payload: int,
+                   lib=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """A packed codestream (int16 tensor) of `n_blocks` codeblocks with
+    `payload` words after their MSB words (from `block_fields`) ->
+    ((N, 4096) int32 streams with -1 fill, (N,) int32 sizes), on the
+    stream's device. Reads nothing back from the device. `lib` as in
+    `pack_streams`."""
+    global UNPACK_LAUNCHES
+    if n_blocks < 0:
+        raise ValueError(f"n_blocks must be >= 0, got {n_blocks}")
+    _check_payload(payload)
+    if stream.dtype != torch.int16:
+        raise TypeError(f"stream must be torch.int16, got {stream.dtype}")
+    if stream.dim() != 1 or not stream.is_contiguous():
+        raise ValueError("stream must be a contiguous 1-D tensor")
+    if stream.numel() < stream_length(n_blocks, payload):
+        raise ValueError(f"stream of {stream.numel()} shorts is shorter than "
+                         f"{n_blocks} codeblocks with {payload} payload "
+                         "words")
+    if _device_type([stream], "X3") == "cpu":
+        return unpack_streams_plain(stream, n_blocks, payload)
+    dev = stream.device
+    out = torch.empty((n_blocks, spec.CBLOCK_SIZE), dtype=torch.int32,
+                      device=dev)
+    sizes = torch.empty(n_blocks, dtype=torch.int32, device=dev)
+    if n_blocks == 0:
+        return out, sizes
+    offsets = torch.empty(n_blocks + 1, dtype=torch.int64, device=dev)
+    lib = lib or kernels.library()
+    with torch.cuda.device(dev):
+        rc = lib.picsong_unpack(
+            stream.data_ptr(), n_blocks, payload, offsets.data_ptr(),
+            out.data_ptr(), sizes.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    UNPACK_LAUNCHES += 1
+    kernels.check(lib, rc, "unpack launch")
+    return out, sizes
+
+
+def bound_ms(n_blocks: int, payload: int) -> dict[str, tuple[float, str]]:
+    """The least time an H100 could take to pack (and to unpack) `n_blocks`
+    codeblocks carrying `payload` words after their MSB words, by
+    direction, and what bounds it: the bytes over the memory rate. Pack:
+    the sizes, the MSB words and the payload words read as int32, the
+    codestream written. Unpack: the codestream read, the (N, 4096) int32
+    rows and the sizes written. The work is a copy: no operation count
+    comes near the bytes."""
+    code = 2 * stream_length(n_blocks, payload)
+    moved = {"pack": 4 * (2 * n_blocks + payload) + code,
+             "unpack": code + 4 * n_blocks * (spec.CBLOCK_SIZE + 1)}
+    return {d: (b / BYTES_PER_S * 1e3, "bytes") for d, b in moved.items()}
 
 
 def _counts(n_parts: int, n_blocks) -> np.ndarray:

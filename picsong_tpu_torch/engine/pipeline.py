@@ -9,8 +9,8 @@ BPC-PaCo encode per component, and the mirror BPC-PaCo decode -> untile
 -> inverse DWT -> inverse color transform -> clamp; on a CUDA device every
 step is a hand-written kernel: the transforms X2 and X4
 (`transform/dwt_cuda.py`) and BPC-PaCo in the variant of the coding mode
-(cp=2, cp=3, or bulk for k > 0). The codestream is packed and unpacked on
-the codec's device (`assembly/pack.py`), so only the packed bytes cross
+(cp=2, cp=3, or bulk for k > 0), and the codestream pack and unpack X3
+(`assembly/pack.py`, `csrc/pack.cu`), so only the packed bytes cross
 to and from the host: one codestream per component, the header on the
 first, the bytes of TPUCodec's host pack.
 

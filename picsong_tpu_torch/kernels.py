@@ -9,8 +9,9 @@ at first use (or when a source is newer than the library), and loaded with
 
 There is no fallback: a missing compiler, a failed build or a failed load
 raises `KernelBuildError` with the compiler's output. Only the wrappers
-(`entropy/bpc_cuda.py`, `transform/dwt_cuda.py`, `tools/probe.py`,
-`tools/probe2.py`) call into the library, and only for CUDA tensors. No
+(`entropy/bpc_cuda.py`, `transform/dwt_cuda.py`, `assembly/pack.py`,
+`tools/probe.py`, `tools/probe2.py`) call into the library, and only for
+CUDA tensors. No
 source needs `--fmad=false`: the 9/7 kernels round through explicit
 intrinsics.
 """
@@ -53,6 +54,11 @@ _SIGNATURES = {
     # b0, b1, b2, batch, comps, h, w, levels, lossy, offset, lo, hi, type,
     # consts, scratch, out, stream
     "picsong_dwt_reverse": [_P, _P, _P, *[_I] * 10, _P, _P, _P, _P],
+    # streams, sizes, n, header (host, or null), capacity, offsets, out,
+    # stream
+    "picsong_pack": [_P, _P, _I, _P, _L, _P, _P, _P],
+    # code, n, payload, offsets, streams, sizes, stream
+    "picsong_unpack": [_P, _I, _L, _P, _P, _P, _P],
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

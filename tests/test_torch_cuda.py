@@ -562,3 +562,87 @@ def test_dwt_launch_goes_to_the_current_stream(cuda):
     want, want_top = dwt_cuda.forward(samples, cfg)
     assert int(top) == int(want_top) and torch.equal(blocks[0].cpu(), want[0])
     assert torch.equal(back[0].cpu(), dwt_cuda.reverse(want, cfg)[0])
+
+
+# -- X3: the codestream pack and unpack kernels -------------------------------
+
+def _pack_batch(seed, kind, n):
+    """(N, 4096) int32 streams as the coder leaves them (-1 past the size;
+    raw copies with words up to 0xFFFF) and their int32 sizes: all empty,
+    all raw, or mixed with both ends."""
+    rng = np.random.default_rng(seed)
+    sizes = {"empty": np.ones(n), "raw": np.full(n, 4096),
+             "mixed": rng.integers(1, 4097, size=n)}[kind].astype(np.int32)
+    if kind == "mixed":
+        sizes[:3] = (1, 4096, 2)[:n]
+    streams = np.full((n, 4096), -1, dtype=np.int32)
+    keep = np.arange(4096)[None, :] < sizes[:, None]
+    streams[keep] = rng.integers(0, 1 << 16, size=int(sizes.sum()),
+                                 dtype=np.int32)
+    streams[:, 0] = np.where(sizes == 1, 32, rng.integers(0, 16, size=n))
+    return torch.from_numpy(streams), torch.from_numpy(sizes)
+
+
+@pytest.mark.parametrize("kind,n", [("empty", 0), ("empty", 9), ("raw", 5),
+                                    ("mixed", 1), ("mixed", 1500),
+                                    ("mixed", 4080)])
+def test_pack_kernels_match_plain(cuda, kind, n):
+    """The kernels' codestream and unpacked streams and sizes == the plain
+    version's on the CPU, with and without a header and with the payload
+    given; one launch a call (none for an empty unpack)."""
+    streams, sizes = _pack_batch(n, kind, n)
+    s_d, z_d = streams.to(cuda), sizes.to(cuda)
+    payload = int(sizes.sum()) - n
+    hdr = pack_header(CodecConfig(width=64, height=64))
+    for h, p in ((hdr, None), (None, None), (hdr, payload)):
+        want = pack.pack_streams_plain(streams, sizes, h, p)
+        before = pack.PACK_LAUNCHES
+        got = pack.pack_streams(s_d, z_d, h, payload=p)
+        assert pack.PACK_LAUNCHES == before + 1
+        assert got.shape == want.shape and torch.equal(got.cpu(), want)
+    before = pack.UNPACK_LAUNCHES
+    s_back, z_back = pack.unpack_streams(got, n, payload)
+    assert pack.UNPACK_LAUNCHES == before + (n > 0)
+    assert s_back.shape == (n, 4096) and z_back.shape == (n,)
+    assert torch.equal(s_back.cpu(), streams)
+    assert torch.equal(z_back.cpu(), sizes)
+
+
+def test_pack_launch_goes_to_the_current_stream(cuda):
+    """Under a non-default current stream the pack and unpack kernels
+    launch on that stream, after the work already queued there, with the
+    plain version's results."""
+    streams, sizes = _pack_batch(3, "mixed", 300)
+    spy = _Spy("picsong_")
+    side = torch.cuda.Stream(cuda)
+    with torch.cuda.stream(side):
+        # produced on the side stream just before the launch
+        s_d = streams.to(cuda, non_blocking=True).clone()
+        z_d = sizes.to(cuda, non_blocking=True).clone()
+        got = pack.pack_streams(s_d, z_d, None, lib=spy)
+        payload = int(sizes.sum()) - 300
+        s_back, z_back = pack.unpack_streams(got, 300, payload, lib=spy)
+    torch.cuda.synchronize()
+    assert spy.calls == [(side.cuda_stream, torch.cuda.current_device())] * 2
+    assert torch.equal(got.cpu(), pack.pack_streams_plain(streams, sizes,
+                                                          None))
+    assert torch.equal(s_back.cpu(), streams)
+    assert torch.equal(z_back.cpu(), sizes)
+
+
+def test_codecs_run_the_pack_kernels(cuda):
+    """TorchCodec.encode / decode on the card launch the pack and unpack
+    kernels once a component, and the wrapper refuses a CUDA tensor it
+    does not take instead of falling back."""
+    frames = _frames(4, 1)
+    cfg = CodecConfig(width=128, height=64, wavelet_levels=2)
+    codec = TorchCodec(cfg, [neutral_lut(PARAMS, 2, 2)], PARAMS, cuda)
+    pack.reset_launches()
+    got = codec.encode(frames[0])
+    assert np.array_equal(codec.decode(got), frames[0])
+    assert (pack.PACK_LAUNCHES, pack.UNPACK_LAUNCHES) == (1, 1)
+    streams, sizes = _pack_batch(1, "mixed", 4)
+    with pytest.raises(TypeError, match="int32"):
+        pack.pack_streams(streams.to(cuda).long(), sizes.to(cuda), None)
+    with pytest.raises(ValueError, match="several devices"):
+        pack.pack_streams(streams.to(cuda), sizes, None)
