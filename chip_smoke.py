@@ -17,7 +17,10 @@ or of the JAX package `picsong_tpu` is imported:
   samples) in every case of DWT_CASES: 5/3 and 9/7 at qs 1, 0.5 and 0.7,
   wl 1-5, gray 8/12/16-bit signed and unsigned, RGB RCT and ICT at
   2048x2560, 1920x1088, a (8, 1088, 1920) and a (4, 3, 2048, 4096) batch,
-  8192x8192; then their times and the torch ops' at DWT_TIMED;
+  8192x8192; X2 also on a view whose first sample is not 16-byte aligned
+  (DWT_OFFSET: its scalar-load variant); then their times and the torch
+  ops' at DWT_TIMED, and X2's device time by level at the first three
+  (`tools/kernel_ab.py` level_split);
 - gray lossless 5/3, 2048x2048 at 5 wavelet levels, neutral and trained
   LUTs (the main path; then every layer of it is timed);
 - the codestream pack and unpack X3 (`assembly/pack.py`, `pack_phase`,
@@ -202,39 +205,6 @@ def kernel_ms(fn, iters=5):
                                        per=KERNEL_BATCH))
 
 
-def graph_ms(fn, iters=5):
-    """The device time a call of a kernel wrapper `fn`, without its host
-    time: KERNEL_BATCH calls captured in one CUDA graph, whose replay is
-    timed with CUDA events (median over `iters`) and divided by
-    KERNEL_BATCH. `fn` must neither synchronise nor copy from the host.
-    torch.profiler is not used for this: on the H100 machine it recorded
-    some of 20 back-to-back calls' kernels, or none."""
-    import torch
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(KERNEL_BATCH):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    out = []
-    for _ in range(iters):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        graph.replay()
-        b.record()
-        torch.cuda.synchronize()
-        out.append(a.elapsed_time(b) / KERNEL_BATCH)
-    del graph
-    torch.cuda.empty_cache()
-    return statistics.median(out)
-
-
 # the DWT phase's cases: (label, height, width, frames (0: an image), RGB,
 # lossy, qs, levels, bits, signed). 16-bit lossy at qs 1 is where a
 # one-ulp drift flips a truncation (coefficients reach ~1e5); 512^2 wl=5
@@ -276,8 +246,11 @@ DWT_CASES = (
     ("8192^2 5/3 wl=5", 8192, 8192, 0, False, False, 1.0, 5, 8, False),
     ("8192^2 9/7 qs 1 wl=5", 8192, 8192, 0, False, True, 1.0, 5, 8, False),
 )
+# X2 on views of a case's samples whose first sample is not 16-byte
+# aligned (its scalar-load variant): (case label, samples skipped)
+DWT_OFFSET = (("2048^2 16-bit 9/7 qs 1 wl=5", 1),)
 # the shapes whose X2/X4 times the phase reports (case labels), the first
-# the main path's
+# the main path's; X2's per-level split at the first three
 DWT_TIMED = ("2048^2 5/3 wl=5", "(8, 1088, 1920) 5/3 wl=5",
              "8192^2 5/3 wl=5", "RGB 2048x2560 ICT qs 1 wl=5")
 
@@ -293,7 +266,7 @@ def dwt_phase(dev, tag: str) -> dict:
     import torch
 
     from picsong_tpu_torch.core.header import CodecConfig
-    from picsong_tpu_torch.tools import goldens
+    from picsong_tpu_torch.tools import goldens, kernel_ab
     from picsong_tpu_torch.transform import dwt_cuda
 
     started = time.perf_counter()
@@ -343,8 +316,29 @@ def dwt_phase(dev, tag: str) -> dict:
             _require(all(torch.equal(b, s) for b, s in zip(back, samples)),
                      f"dwt {label}: lossless X4(X2(samples)) == samples")
         cases[label] = (cfg, samples, blocks)
+    for label, skip in DWT_OFFSET:
+        cfg, samples, _ = cases[label]
+        views = []
+        for s_ in samples:
+            buf = torch.zeros(s_.numel() + 16, dtype=s_.dtype, device=dev)
+            buf[skip:skip + s_.numel()] = s_.reshape(-1)
+            views.append(buf[skip:skip + s_.numel()].view(s_.shape))
+        _require(not dwt_cuda.vector_loads(views),
+                 f"dwt {label} offset by {skip}: a scalar-load view")
+        before = dwt_cuda.FORWARD_LAUNCHES
+        blocks, top = dwt_cuda.forward(views, cfg)
+        want, want_top = dwt_cuda.forward_plain(views, cfg)
+        torch.cuda.synchronize()
+        _require(dwt_cuda.FORWARD_LAUNCHES == before + 1,
+                 f"dwt {label} offset by {skip}: X2 launched once")
+        e = max([diff(b, p) for b, p in zip(blocks, want)]
+                + [diff(top, want_top)])
+        err["forward"] = max(err["forward"], e)
+        _require(e == 0, f"dwt {label} offset by {skip}: X2 kernel == plain "
+                 f"(codeblocks, maximum), max abs err {e}")
     print(f"{tag} DWT phase: X2 and X4 byte-equal to their plain versions "
-          f"in {len(DWT_CASES)} cases (max abs err forward "
+          f"in {len(DWT_CASES)} cases and X2 on {len(DWT_OFFSET)} "
+          f"16-byte-misaligned view(s) (max abs err forward "
           f"{err['forward']}, reverse {err['reverse']}), lossless round "
           f"trips exact; {time.perf_counter() - started:.1f} s")
     times = {}
@@ -354,9 +348,9 @@ def dwt_phase(dev, tag: str) -> dict:
         t = times[label] = {
             "forward_ms": kernel_ms(lambda: dwt_cuda.forward(samples, cfg)),
             "reverse_ms": kernel_ms(lambda: dwt_cuda.reverse(blocks, cfg)),
-            "forward_device_ms": graph_ms(
+            "forward_device_ms": kernel_ab.graph_ms(
                 lambda: dwt_cuda.forward(samples, cfg)),
-            "reverse_device_ms": graph_ms(
+            "reverse_device_ms": kernel_ab.graph_ms(
                 lambda: dwt_cuda.reverse(blocks, cfg)),
             "forward_plain_ms": statistics.median(device_ms(
                 lambda: dwt_cuda.forward_plain(samples, cfg), iters=3,
@@ -373,8 +367,21 @@ def dwt_phase(dev, tag: str) -> dict:
               f"{t['reverse_plain_ms']:.4f} ms; bound {bound:.5f} ms ({by}), "
               f"share {bound / t['forward_ms']:.4f} / "
               f"{bound / t['reverse_ms']:.4f}")
+    # X2's device time by level: wl = 1 .. 5 on the same planes, 5/3 and
+    # 9/7 qs 1, the differences (tools/kernel_ab.py level_split)
+    split = {}
+    for label in DWT_TIMED[:3]:
+        _, samples, _ = cases[label]
+        for lossy in (False, True):
+            wavelet = "9/7 qs 1" if lossy else "5/3"
+            levels = split[(label, wavelet)] = kernel_ab.level_split(
+                dwt_cuda.forward, samples[0], lossy)
+            print(f"{tag} dwt {label}: X2 {wavelet} by level (device ms, "
+                  f"levels 0..{len(levels) - 1}): "
+                  + " / ".join(f"{v:.4f}" for v in levels)
+                  + f" = {sum(levels):.4f}")
     print(f"{tag} DWT phase done in {time.perf_counter() - started:.1f} s")
-    return {"err": err, "times": times}
+    return {"err": err, "times": times, "split": split}
 
 
 def pack_results() -> dict:
@@ -391,12 +398,13 @@ def pack_check(tag: str, label: str, streams, sizes, header, res: dict,
     plain version on the same card tensors; the unpack equal to the
     streams and sizes packed. With `timed`: the kernels' time over
     KERNEL_BATCH back-to-back calls (payload given, so no read) and their
-    device time in a CUDA graph (`graph_ms`), the plain version's (median
-    of 3), the pack with its one read on the host clock, and the bound,
-    into res["times"][label]."""
+    device time in a CUDA graph (`kernel_ab.graph_ms`), the plain version's
+    (median of 3), the pack with its one read on the host clock, and the
+    bound, into res["times"][label]."""
     import torch
 
     from picsong_tpu_torch.assembly import pack
+    from picsong_tpu_torch.tools import kernel_ab
 
     def diff(a, b) -> int:
         _require(a.shape == b.shape, f"X3 {label}: shapes {tuple(a.shape)} "
@@ -437,7 +445,7 @@ def pack_check(tag: str, label: str, streams, sizes, header, res: dict,
                 streams, sizes, header, payload)),
             ("unpack", do_unpack, lambda: pack.unpack_streams_plain(
                 got, n, payload))):
-        t[d] = {"ms": kernel_ms(fn), "device_ms": graph_ms(fn),
+        t[d] = {"ms": kernel_ms(fn), "device_ms": kernel_ab.graph_ms(fn),
                 "plain_ms": statistics.median(device_ms(plain, iters=3,
                                                         warm=1)),
                 "bound_ms": bound[d][0], "bound_by": bound[d][1]}
@@ -2186,9 +2194,15 @@ def main() -> int:
                     for r in qual]
     # X2/X4 at the main path's shape; launches on its two CLI round trips
     main_dwt = dwt["times"][DWT_TIMED[0]]
+    designs = {
+        "forward": "16-row and 16-column strips lifted in registers (one "
+                   "barrier between the passes), 16-byte sample loads, "
+                   "staged 16-byte codeblock stores",
+        "reverse": "a 64x64 tile with its halo lifted in shared memory, a "
+                   "barrier a lifting step"}
     for d, line in (("forward", 157), ("reverse", 187)):
         entries.append({
-            "name": f"dwt_{d}", "route": "cuda",
+            "name": f"dwt_{d}", "route": "cuda", "design": designs[d],
             "source": f"{src_dir}/dwt_{d}.cu",
             "replaces": f"picsong_tpu/transform/dwt.py:{line}",
             "launches": dwt_launches[d], "max_abs_err": dwt["err"][d],
@@ -2204,6 +2218,10 @@ def main() -> int:
                         "bound_ms": t["bound_ms"],
                         "bound_by": t["bound_by"]}
                        for label, t in dwt["times"].items()]})
+        if d == "forward":
+            entries[-1]["levels_ms"] = [
+                {"workload": label, "wavelet": wavelet, "ms": levels}
+                for (label, wavelet), levels in dwt["split"].items()]
     # X3 at the main path's streams; launches on its two CLI round trips
     main_x3 = x3["times"][f"{SIZE}^2 wl={LEVELS} main path"]
     for d, line in (("pack", 1818), ("unpack", 1832)):

@@ -2,31 +2,35 @@
 // kernels share.
 //
 // One launch per level. A CTA owns a 64x64 tile of the level's plane and
-// lifts it in shared memory with a halo of its neighbours' samples: a
-// lifting step reads the two neighbours along its axis, so the tile's own
-// outputs after every step of a level need 2 samples a side for 5/3 and 4
-// for 9/7 (the chains reach 2 / 4 positions left and 1 / 3 right forward,
-// 1 / 3 left and 2 / 4 right back; the left halo is rounded up to keep the
-// tile even-aligned). Halo positions compute values that are not used;
-// positions past the plane's edge are loaded as 0 and never read by an
-// in-plane position, because the neighbour rule is the port's `_nxt`
-// (the odd position at the plane's end reads its left even twice) and
-// `_prv` (the even position 0 reads its right odd twice), taken on the
-// position's index in the level's plane: exactly `transform/dwt.py`.
+// reads a halo of its neighbours' samples: a lifting step reads the two
+// neighbours along its axis, so the tile's own outputs after every step of
+// a level need 2 samples a side for 5/3 and 4 for 9/7 (the chains reach 2
+// / 4 positions left and 1 / 3 right forward, 1 / 3 left and 2 / 4 right
+// back; the left halo is rounded up to keep the tile even-aligned). Halo
+// positions compute values that are not used; positions past the plane's
+// edge are loaded as 0 and never read by an in-plane position, because
+// the neighbour rule is the port's `_nxt` (the odd position at the plane's
+// end reads its left even twice) and `_prv` (the even position 0 reads its
+// right odd twice), taken on the position's index in the level's plane:
+// exactly `transform/dwt.py`.
 //
-// Every step is one pass over the positions of one parity and a
-// __syncthreads(): a step writes only that parity and reads only the
-// other, so a pass has no races. The 9/7 arithmetic rounds once per JAX
-// op through explicit round-to-nearest intrinsics (__fadd_rn, __fmul_rn,
-// __fdiv_rn, __fmaf_rn), which nvcc never contracts or reorders.
+// X4 lifts its tile in shared memory, a step at a time (`lift_step`): one
+// pass over the positions of one parity and a __syncthreads(); a step
+// writes only that parity and reads only the other, so a pass has no
+// races. X2 lifts strips of 16 positions (plus the halo) in registers
+// (`lift_regs`), every step of a level fully unrolled, with the edge rule
+// as a select only in strips that reach the plane's first or last
+// position. The 9/7 arithmetic rounds once per JAX op through explicit
+// round-to-nearest intrinsics (__fadd_rn, __fmul_rn, __fdiv_rn,
+// __fmaf_rn), which nvcc never contracts or reorders.
 //
 // What bounds these kernels on an H100: bytes. A level reads its plane
 // (+13% of halo for 5/3, +27% for 9/7) and writes its subbands; the bound
 // counts the samples read once and the codeblocks written once
 // (transform/dwt_cuda.py `bound_ms`), the intermediate LL planes (a third
-// of a plane more each way) and the halos are this design's cost, as is a
-// __syncthreads() a step. At 2048^2 the deep levels' planes are a few
-// tiles, so the five launches are latency-bound.
+// of a plane more each way) and the halos are this design's cost. At
+// 2048^2 the deep levels' planes are a few tiles, so their launches are
+// latency-bound: one CTA's chain of loads, barriers and stores.
 #pragma once
 
 #include <cstdint>
@@ -160,41 +164,64 @@ __device__ __forceinline__ void lift_step(V* t, int par, int l0, int l1,
   __syncthreads();
 }
 
-// Forward lifting along one axis (`dwt._fwd53` / `_fwd97`), the odd
-// positions' final `* K1` only when `scale_odd` (the horizontal pass folds
+// One lifting step on a strip v of N consecutive positions along an axis,
+// held in registers (X2): every index of parity kPar becomes f(x, a, b) of
+// itself and its neighbours a (left) and b (right), with lift_step's
+// neighbour rule. With kEdge, `lo` and `hi` are the indices of the plane's
+// first and last position (either may lie outside the strip): the odd
+// index before `hi` + 1 reads its left even twice (`_nxt`), the even index
+// at `lo` its right odd (`_prv`); without, the strip lies strictly inside
+// the plane and no select is made. At the strip's own ends (halo
+// positions, whose values are not used) the read stays inside the strip.
+template <int kPar, bool kEdge, int N, class V, class F>
+__device__ __forceinline__ void lift_regs(V (&v)[N], int lo, int hi, F f) {
+#pragma unroll
+  for (int i = kPar; i < N; i += 2) {
+    V a = v[i > 0 ? i - 1 : i + 1];
+    V b = v[i + 1 < N ? i + 1 : i - 1];
+    if constexpr (kEdge) {
+      if constexpr (kPar) b = i < hi ? b : a;
+      else a = i > lo ? a : b;
+    }
+    v[i] = f(v[i], a, b);
+  }
+}
+
+// Forward lifting of a register strip (`dwt._fwd53` / `_fwd97`): the steps
+// of lift_step's forward chain in the same order and arithmetic, the odd
+// positions' final `* K1` only with kScaleOdd (the horizontal pass folds
 // it into the store).
-template <bool kLossy, bool kVert>
-__device__ __forceinline__ void lift_forward(typename Tile<kLossy>::V* t,
-                                             int l0, int l1, int g0, int n,
-                                             const Consts& c, bool scale_odd) {
-  constexpr int S = Tile<kLossy>::kSide;
+template <bool kLossy, bool kEdge, bool kScaleOdd, class V, int N>
+__device__ __forceinline__ void lift_forward_regs(V (&v)[N], int lo, int hi,
+                                                  const Consts& c) {
+  static_assert(std::is_same<V, typename Tile<kLossy>::V>::value,
+                "int32 for 5/3, float for 9/7");
   if constexpr (!kLossy) {
-    lift_step<S, kVert>(t, 1, l0, l1, g0, n, [](int32_t x, int32_t a,
-                                                int32_t b) {
+    lift_regs<1, kEdge>(v, lo, hi, [](int32_t x, int32_t a, int32_t b) {
       return x - ((a + b) >> 1);
     });
-    lift_step<S, kVert>(t, 0, l0, l1, g0, n, [](int32_t x, int32_t a,
-                                                int32_t b) {
+    lift_regs<0, kEdge>(v, lo, hi, [](int32_t x, int32_t a, int32_t b) {
       return x + ((a + b + 2) >> 2);
     });
   } else {
     const float al = c.alpha, be = c.beta, ga = c.gamma, de = c.delta;
-    const float k1 = c.k1, k2 = c.k2;
-    lift_step<S, kVert>(t, 1, l0, l1, g0, n, [=](float x, float a, float b) {
+    const float k2 = c.k2;
+    lift_regs<1, kEdge>(v, lo, hi, [=](float x, float a, float b) {
       return __fadd_rn(x, __fmul_rn(__fadd_rn(a, b), al));
     });
-    lift_step<S, kVert>(t, 0, l0, l1, g0, n, [=](float x, float a, float b) {
+    lift_regs<0, kEdge>(v, lo, hi, [=](float x, float a, float b) {
       return __fadd_rn(x, __fmul_rn(__fadd_rn(a, b), be));
     });
-    lift_step<S, kVert>(t, 1, l0, l1, g0, n, [=](float x, float a, float b) {
+    lift_regs<1, kEdge>(v, lo, hi, [=](float x, float a, float b) {
       return __fadd_rn(x, __fmul_rn(__fadd_rn(a, b), ga));
     });
-    lift_step<S, kVert>(t, 0, l0, l1, g0, n, [=](float x, float a, float b) {
+    lift_regs<0, kEdge>(v, lo, hi, [=](float x, float a, float b) {
       return __fmul_rn(__fadd_rn(x, __fmul_rn(__fadd_rn(a, b), de)), k2);
     });
-    if (scale_odd)
-      lift_step<S, kVert>(t, 1, l0, l1, g0, n,
-                          [=](float x, float, float) { return __fmul_rn(x, k1); });
+    if constexpr (kScaleOdd) {
+#pragma unroll
+      for (int i = 1; i < N; i += 2) v[i] = __fmul_rn(v[i], c.k1);
+    }
   }
 }
 

@@ -47,10 +47,10 @@ _SIGNATURES = {
     "picsong_probe": [_P, _P, _P, _P],
     # tape, amt, out, stream
     "picsong_probe2": [_P, _P, _P, _P],
-    # s0, s1, s2, type, batch_stride, row_stride, batch, comps, h, w,
+    # s0, s1, s2, type, vec, batch_stride, row_stride, batch, comps, h, w,
     # levels, lossy, offset, consts, scratch, blocks, top, stream
-    "picsong_dwt_forward": [_P, _P, _P, _I, _L, _L, *[_I] * 7, _P, _P, _P,
-                            _P, _P],
+    "picsong_dwt_forward": [_P, _P, _P, _I, _I, _L, _L, *[_I] * 7, _P, _P,
+                            _P, _P, _P],
     # b0, b1, b2, batch, comps, h, w, levels, lossy, offset, lo, hi, type,
     # consts, scratch, out, stream
     "picsong_dwt_reverse": [_P, _P, _P, *[_I] * 10, _P, _P, _P, _P],

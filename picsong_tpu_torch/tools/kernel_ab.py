@@ -4,6 +4,7 @@ checkout's, on one card, in one process.
     python -m picsong_tpu_torch.tools.kernel_ab --other DIR [--sizes 2048,8192]
     python -m picsong_tpu_torch.tools.kernel_ab --other DIR --sweep
     python -m picsong_tpu_torch.tools.kernel_ab --other DIR --layers
+    python -m picsong_tpu_torch.tools.kernel_ab [--other DIR] --split
 
 DIR is the root of another checkout (a `git archive` of the parent
 commit, say); its `picsong_tpu_torch/csrc` is built into `DIR/build/ab`.
@@ -27,9 +28,18 @@ DWT + clamp as the tree's codec runs them -- `transform/dwt_cuda.py`'s
 `forward` / `reverse` where the tree has them (the X2/X4 kernels), else
 `TorchCodec`'s torch-op methods -- (CUDA events around one call, as
 chip_smoke.py's layers; sixteen turns of ten), lossless 5/3 wl=5 and lossy
-9/7 wl=3 qs=1; for the lossless one also the device encode and decode and
-the CLI round trip (host clock with a synchronize, as chip_smoke.py's).
-Outputs must be equal.
+9/7 wl=3 qs=1, and the same X2 layer's device time without the
+wrapper's host time (`graph_ms`, a CUDA graph of 20 calls); for the
+lossless one also the device encode and decode and the CLI round trip
+(host clock with a synchronize, as chip_smoke.py's). Outputs must be
+equal.
+
+`--split` instead times X2 (`transform/dwt_cuda.py` `forward`) level by
+level, for this tree and, with `--other`, the other tree's in turns: the
+device time (`graph_ms`) at wl = 1 .. 5 on the same planes, at the
+SPLIT_SHAPES (2048^2, the (8, 1088, 1920) video batch, 8192^2), each 5/3
+and 9/7 qs 1; level 0 is the wl=1 time, level k the wl=k+1 time less the
+wl=k time. One JSON line per (tree, shape, wavelet).
 """
 
 from __future__ import annotations
@@ -52,6 +62,10 @@ ITERS = 10
 SWEEP = (1, 33, 66, 132, 264, 528, 1056, 2112, 4224)
 # the host's clock drifts within a run, so the layers take more turns
 LAYER_TURNS = ("other", "this", "this", "other") * 4
+# X2's per-level split: (label, height, width, frames (0: an image))
+SPLIT_SHAPES = (("2048^2", 2048, 2048, 0), ("(8, 1088, 1920)", 1088, 1920, 8),
+                ("8192^2", 8192, 8192, 0))
+SPLIT_LEVELS = 5
 
 
 def _times(fn, per: int = BATCH) -> list[float]:
@@ -82,6 +96,101 @@ def _host_times(fn) -> list[float]:
         torch.cuda.synchronize()
         out.append((time.perf_counter() - t) * 1e3)
     return out
+
+
+def graph_ms(fn, iters: int = 5, per: int = BATCH) -> float:
+    """The device time a call of a kernel wrapper `fn`, without its host
+    time: `per` calls captured in one CUDA graph, whose replay is timed
+    with CUDA events (median over `iters`) and divided by `per`. `fn` must
+    neither synchronise nor copy from the host. (Not torch.profiler: on an
+    H100 it has recorded some of 20 back-to-back calls' kernels, or
+    none.)"""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(per):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(iters):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        torch.cuda.synchronize()
+        out.append(a.elapsed_time(b) / per)
+    del graph
+    torch.cuda.empty_cache()
+    return statistics.median(out)
+
+
+def split_planes(h: int, w: int, frames: int, dev):
+    """The gray 8-bit planes of a split shape: `goldens.make_image`, one a
+    frame (seeds 11, 12, ... as chip_smoke.py's DWT phase)."""
+    import numpy as np
+    import torch
+
+    from . import goldens
+    planes = np.stack([goldens.make_image(h, seed=11 + k, width=w)
+                       for k in range(max(frames, 1))])
+    return torch.from_numpy(planes).to(dev).reshape(
+        *((frames,) if frames else ()), h, w)
+
+
+def level_split(forward, plane, lossy: bool, levels: int = SPLIT_LEVELS,
+                config=None) -> list[float]:
+    """X2's device time by level on one gray plane (or frame batch):
+    `graph_ms` of `forward([plane], cfg)` at wl = 1 .. levels, then the
+    differences (level 0 the wl=1 time). `config` is the tree's
+    CodecConfig class (default this tree's)."""
+    if config is None:
+        from ..core.header import CodecConfig as config
+    h, w = plane.shape[-2:]
+    cum = [graph_ms(lambda: forward([plane], config(
+        width=w, height=h, wavelet_levels=wl, is_lossy=lossy, qs=1.0)))
+        for wl in range(1, levels + 1)]
+    return [cum[0]] + [b - a for a, b in zip(cum, cum[1:])]
+
+
+def _split(other_root: str | None, card: str) -> int:
+    """X2's per-level device time, this tree's and the other's in turns."""
+    import torch
+
+    pkgs = {"this": "picsong_tpu_torch"}
+    if other_root:
+        _other_package(other_root)
+        pkgs["other"] = "ab_other"
+    trees = {t: (importlib.import_module(f"{p}.transform.dwt_cuda"),
+                 importlib.import_module(f"{p}.core.header").CodecConfig)
+             for t, p in pkgs.items()}
+    turns = ("other", "this", "this", "other") if other_root else ("this",)
+    dev = torch.device("cuda")
+    for label, h, w, frames in SPLIT_SHAPES:
+        plane = split_planes(h, w, frames, dev)
+        for lossy in (False, True):
+            got = {t: [] for t in trees}
+            for t in turns:
+                dwt_cuda, config = trees[t]
+                got[t].append(level_split(dwt_cuda.forward, plane, lossy,
+                                          config=config))
+            for t, runs in got.items():
+                levels = [statistics.median(r[k] for r in runs)
+                          for k in range(SPLIT_LEVELS)]
+                print(json.dumps({
+                    "tree": t, "shape": label,
+                    "wavelet": "9/7 qs 1" if lossy else "5/3",
+                    "levels_ms": levels, "total_ms": sum(levels),
+                    "n": len(runs), "card": card}), flush=True)
+        del plane
+        torch.cuda.empty_cache()
+    return 0
 
 
 def _other_package(root: str):
@@ -186,6 +295,12 @@ def _layers(other_root: str, card: str) -> int:
                                   else _times(fn, per=1))
             _print_ab(name, layer, "host clock" if host else "CUDA events",
                       samples_ms, card)
+        # X2's device time a call, without the wrapper's host time
+        samples_ms = {"other": [], "this": []}
+        for t in LAYER_TURNS:
+            samples_ms[t].append(graph_ms(fns[t][0]))
+        _print_ab(name, "prep+DWT+tile device", "CUDA graph", samples_ms,
+                  card)
         if not kw.get("is_lossy"):
             samples_ms = {"other": [], "this": []}
             for t in LAYER_TURNS:
@@ -212,11 +327,14 @@ def _print_ab(config, layer, clock, samples, card) -> None:
 
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--other", required=True)
+    ap.add_argument("--other")
     ap.add_argument("--sizes", default="2048,8192")
     ap.add_argument("--sweep", action="store_true")
     ap.add_argument("--layers", action="store_true")
+    ap.add_argument("--split", action="store_true")
     args = ap.parse_args(argv)
+    if not (args.split or args.other):
+        ap.error("--other is required unless --split")
 
     import torch
 
@@ -236,6 +354,8 @@ def main(argv: list[str] | None = None) -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.splitlines()[0]
     print(card)
+    if args.split:
+        return _split(args.other and os.path.abspath(args.other), card)
     if args.layers:
         return _layers(os.path.abspath(args.other), card)
     other_dir = os.path.join(os.path.abspath(args.other), "build", "ab")

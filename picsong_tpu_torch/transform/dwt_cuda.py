@@ -56,6 +56,14 @@ REVERSE_LAUNCHES = 0
 # neighbouring samples on each side
 TILE = 64
 HALO = {False: 2, True: 4}
+# X2's work split (csrc/dwt_forward.cu kStrip, kPad): a thread lifts
+# X2_STRIP positions of a column, then of a row, plus HALO each side; the
+# tile's arrays in shared memory start X2_PAD rows and columns before it
+X2_STRIP = 16
+X2_PAD = 4
+# the bytes of a vector load: X2 reads level 0 in 16-byte chunks where the
+# sample planes allow it (`vector_loads`)
+VECTOR_BYTES = 16
 
 # the H100 SXM's float32 rate outside the tensor cores
 FLOAT32_OPS_PER_S = 67e12
@@ -279,6 +287,18 @@ def _check_samples(samples: list[torch.Tensor], cfg: CodecConfig):
     return lead, ah, aw
 
 
+def vector_loads(samples: list[torch.Tensor]) -> bool:
+    """Whether X2 may read these sample planes in 16-byte chunks: every
+    plane's first sample, its row stride and its frame stride (a batch)
+    fall on multiples of VECTOR_BYTES. Otherwise (an offset view, an odd
+    stride) the same kernel reads a sample at a time."""
+    first = samples[0]
+    size = first.element_size()
+    strides = first.stride()[:-1]
+    return (all(s.data_ptr() % VECTOR_BYTES == 0 for s in samples)
+            and all(st * size % VECTOR_BYTES == 0 for st in strides))
+
+
 def forward(samples: list[torch.Tensor], cfg: CodecConfig, lib=None):
     """X2: one gray or [R, G, B] (..., ah, aw) sample planes -> ([blocks
     (..., ncb, 64, 64) int32 per component], 0-dim int32 maximum of
@@ -303,7 +323,7 @@ def forward(samples: list[torch.Tensor], cfg: CodecConfig, lib=None):
     lib = lib or kernels.library()
     with torch.cuda.device(dev):
         rc = lib.picsong_dwt_forward(
-            *ptrs, _SAMPLE_TYPES[first.dtype],
+            *ptrs, _SAMPLE_TYPES[first.dtype], int(vector_loads(samples)),
             first.stride(0) if lead else 0, first.stride(-2), batch, nc, ah,
             aw, cfg.wavelet_levels, int(cfg.is_lossy), offset(cfg),
             ctypes.addressof(consts), scratch.data_ptr(), blocks.data_ptr(),

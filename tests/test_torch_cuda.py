@@ -478,6 +478,10 @@ DWT_CASES = [
     (256, 320, 0, True, True, 0.7, 2, 16, False),
     (192, 256, 3, False, False, 1.0, 3, 8, False),
     (192, 256, 2, True, True, 0.5, 4, 8, False),
+    # six levels: the level-5 LL plane is 6 wide, read a value at a time,
+    # and its bands 2 wide, stored a coefficient at a time
+    (128, 192, 0, False, False, 1.0, 6, 8, False),
+    (128, 192, 0, False, True, 1.0, 6, 8, False),
 ]
 
 
@@ -544,6 +548,72 @@ def test_codecs_run_the_dwt_kernels(cuda):
         cpu.encode_blocks(blocks_h, n_h), n_h))
     with pytest.raises(TypeError, match="uint8"):
         dwt_cuda.forward([s.to(cuda).int() for s in samples], cfg)
+
+
+def _offset_view(t: torch.Tensor, skip: int) -> torch.Tensor:
+    """`t`'s values in a view `skip` elements into a larger buffer."""
+    buf = torch.zeros(t.numel() + 16, dtype=t.dtype, device=t.device)
+    buf[skip:skip + t.numel()] = t.reshape(-1)
+    return buf[skip:skip + t.numel()].view(t.shape)
+
+
+@pytest.mark.parametrize("skip", [0, 1, 8])
+@pytest.mark.parametrize("lossy,bits", [(False, 8), (True, 16)])
+def test_dwt_forward_on_offset_views(cuda, skip, lossy, bits):
+    """X2 on an aligned view (skip 0: 16-byte loads) and on views whose
+    first sample is not 16-byte aligned (the scalar-load variant) ==
+    forward_plain on the CPU, one launch a call."""
+    cfg = _dwt_cfg(192, 320, lossy=lossy, wl=4, bits=bits)
+    (plane,) = _dwt_samples(cfg)
+    view = _offset_view(plane.to(cuda), skip)
+    assert dwt_cuda.vector_loads([view]) == (skip * view.element_size()
+                                             % 16 == 0)
+    before = dwt_cuda.FORWARD_LAUNCHES
+    blocks, top = dwt_cuda.forward([view], cfg)
+    torch.cuda.synchronize()
+    assert dwt_cuda.FORWARD_LAUNCHES == before + 1
+    want, want_top = dwt_cuda.forward([plane], cfg)
+    assert int(top) == int(want_top) and torch.equal(blocks[0].cpu(),
+                                                     want[0])
+
+
+@pytest.mark.parametrize("rgb", [False, True])
+def test_dwt_forward_on_a_frame_stride_off_16_bytes(cuda, rgb):
+    """A frame batch whose frames lie 8 bytes further apart than their
+    planes (a frame stride that is not a multiple of 16 bytes): the
+    wrapper takes it, X2 reads it a sample at a time, == forward_plain."""
+    cfg = _dwt_cfg(128, 192, rgb=rgb, lossy=rgb, wl=3)
+    frames = torch.stack([torch.stack(_dwt_samples(cfg, seed=s))
+                          for s in (1, 2, 3)])          # (3, comps, h, w)
+    per = frames[0].numel() + 8
+    buf = torch.zeros(3 * per, dtype=torch.uint8, device=cuda)
+    strided = buf.as_strided(frames.shape, (per, *frames.stride()[1:]))
+    strided.copy_(frames.to(cuda))
+    samples = list(strided.unbind(1))
+    assert samples[0].stride(0) == per and not dwt_cuda.vector_loads(samples)
+    before = dwt_cuda.FORWARD_LAUNCHES
+    blocks, top = dwt_cuda.forward(samples, cfg)
+    torch.cuda.synchronize()
+    assert dwt_cuda.FORWARD_LAUNCHES == before + 1
+    want, want_top = dwt_cuda.forward(list(frames.unbind(1)), cfg)
+    assert int(top) == int(want_top)
+    for b, w_ in zip(blocks, want):
+        assert torch.equal(b.cpu(), w_)
+
+
+def test_dwt_forward_counts_one_launch_a_call(cuda):
+    """FORWARD_LAUNCHES counts a call (its levels' launches are one) and
+    nothing else: not a refused input, not the CPU's plain version."""
+    cfg = _dwt_cfg(256, 256, wl=5)
+    (plane,) = _dwt_samples(cfg)
+    dwt_cuda.reset_launches()
+    for _ in range(3):
+        dwt_cuda.forward([plane.to(cuda)], cfg)
+    dwt_cuda.forward([plane], cfg)
+    with pytest.raises(TypeError):
+        dwt_cuda.forward([plane.to(cuda).int()], cfg)
+    torch.cuda.synchronize()
+    assert dwt_cuda.FORWARD_LAUNCHES == 3
 
 
 def test_dwt_launch_goes_to_the_current_stream(cuda):

@@ -1,7 +1,8 @@
 """The port's row-sharded `ShardedCodec` (`dist/sharded.py`) in every
 image mode: RGB, lossy 9/7 (with the deep-level gather), 5/3 with the
-gather, 12/16-bit and signed samples; against `TPUCodec`, the
-single-device port and the NumPy oracle (tests/test_torch_dist.py has the
+gather, 12/16-bit and signed samples, three coding passes and complexity
+scalability (`-k`); against `TPUCodec`, the single-device port and the
+NumPy oracle (tests/test_torch_dist.py has the
 shard counts, the uneven rows and the JAX `ShardedCodec`).
 
 The shards sit on the CPU here (`["cpu"] * N`, where the JAX tests use
@@ -12,19 +13,22 @@ are held to the oracle's, which `TPUCodec`'s XLA:CPU 9/7 can miss by a
 few coefficients (ROADMAP queue 3).
 """
 
+import os
+
 import numpy as np
 import pytest
 
 from picsong_tpu.engine.pipeline import TPUCodec
 from picsong_tpu.reference import codec as oracle
 from picsong_tpu_torch.core.header import CodecConfig
-from picsong_tpu_torch.core.lut import LUTParams, neutral_lut
+from picsong_tpu_torch.core.lut import LUTParams, load_luts, neutral_lut
 from picsong_tpu_torch.dist.sharded import ShardedCodec
 from picsong_tpu_torch.engine.pipeline import TorchCodec
 
 from torch_twins import J
 
 PARAMS = LUTParams()
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def make_image(rng, h, w, lo=0, hi=255, dtype=np.uint8):
@@ -107,3 +111,39 @@ def test_sharded_highdepth_matches_single(bps, signed):
     assert np.array_equal(got[0], want[0])
     out = codec.decode(got)
     assert out.dtype == dtype and np.array_equal(out, img)
+
+
+# (lossy, coding passes, k, LUT folder under luts/, or None: neutral)
+CODING_MODES = [
+    (False, 3, 0.0, None),
+    (False, 2, 5.0, "trained_lossless"),
+    (False, 3, 5.0, "trained_lossless"),
+    (True, 2, 5.0, "trained_lossy"),
+]
+
+
+@pytest.mark.parametrize("n", [2, 3])
+@pytest.mark.parametrize("lossy,cp,k,folder", CODING_MODES)
+def test_sharded_coding_modes_match_single(lossy, cp, k, folder, n):
+    """cp=3 and -k 5 (the bulk pass, with every bitplane group's LUT),
+    lossless and lossy, over 2 and 3 shards of 256x128 at wl=2: the
+    unsharded TorchCodec's codestream byte for byte and its decode, and
+    lossless the input."""
+    wl = 2
+    img = make_image(np.random.default_rng(30 + cp + int(k)), 128, 256)
+    cfg = CodecConfig(width=256, height=128, wavelet_levels=wl,
+                      is_lossy=lossy, qs=1.0, coding_passes=cp, k_factor=k)
+    if folder is None:
+        luts, params = [neutral_lut(PARAMS, wl, cp)], PARAMS
+    else:
+        luts, params = load_luts(os.path.join(REPO, "luts", folder), wl, cp,
+                                 k)
+    codec = ShardedCodec(cfg, luts, params, ["cpu"] * n)
+    single = TorchCodec(cfg, luts, params, "cpu")
+    got, want = codec.encode(img), single.encode(img)
+    assert len(got) == len(want) == 1
+    assert np.array_equal(got[0], want[0])
+    out = codec.decode(got)
+    assert np.array_equal(out, single.decode(want))
+    if not lossy:
+        assert np.array_equal(out, img)

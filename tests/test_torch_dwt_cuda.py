@@ -1,8 +1,9 @@
 """The transform layers X2 and X4 (`transform/dwt_cuda.py`) on the CPU: the
 plain version the kernels are held to, against TPUCodec's device programs
 (`_prep_*` + `_dwt_tile`, `_untile_idwt` + `_finish_*`, on JAX's CPU) and
-the NumPy oracle; the wrapper's checks and bound; and a model of the
-kernels' tiling with halos against whole-plane lifting.
+the NumPy oracle; the wrapper's checks, entry points and bound; a model of
+X4's tiling with halos, and one of X2's work split (16-byte load windows,
+register strips, staged 16-byte stores), against whole-plane lifting.
 
 Tolerances: the integer paths (5/3, RCT) are exact against both. The 9/7
 path is exact against the oracle; TPUCodec's XLA:CPU 9/7 drifts (ROADMAP
@@ -13,6 +14,9 @@ tests/test_torch_lossy.py; the drift grows with the coefficients, 7 of
 port's (PSNR against the input).
 """
 
+import os
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -21,6 +25,7 @@ import torch
 from picsong_tpu.engine.pipeline import TPUCodec
 from picsong_tpu.reference import codec as ocodec
 from picsong_tpu.reference import dwt as odwt
+from picsong_tpu_torch import kernels
 from picsong_tpu_torch.core import spec
 from picsong_tpu_torch.core.header import CodecConfig
 from picsong_tpu_torch.core.lut import LUTParams, neutral_lut
@@ -212,6 +217,38 @@ def test_wrapper_rejects_what_the_kernels_do_not_take():
         dwt_cuda.forward([good], _cfg(rgb=True))
 
 
+@pytest.mark.parametrize("skip,size,strides,want", [
+    (0, 1, (), True), (1, 1, (), False), (16, 1, (), True),
+    (8, 2, (), True), (1, 2, (), False),
+    (0, 1, ((64 + 16) * W,), True), (0, 1, ((64 + 8) * W + 8,), False),
+    (0, 2, ((64 + 4) * W + 4,), False)])
+def test_vector_loads_need_16_byte_bases_and_strides(skip, size, strides,
+                                                     want):
+    """X2 reads level 0 in 16-byte chunks only where every plane's first
+    sample and its row and frame strides in bytes are multiples of 16."""
+    dtype = {1: torch.uint8, 2: torch.int16}[size]
+    frame = strides[0] if strides else H * W
+    buf = torch.zeros(skip + 3 * frame, dtype=dtype)
+    if strides:
+        planes = buf[skip:].as_strided((3, H, W), (frame, W, 1))
+    else:
+        planes = buf[skip:skip + H * W].view(H, W)
+    assert dwt_cuda.vector_loads([planes]) == want
+
+
+def test_entry_points_are_bound():
+    """The C entry points of csrc/dwt_forward.cu and dwt_reverse.cu are
+    declared for ctypes with as many arguments as the sources take."""
+    for name in ("forward", "reverse"):
+        with open(os.path.join(kernels.CSRC_DIR, f"dwt_{name}.cu")) as f:
+            src = f.read()
+        m = re.search(r'extern "C" int picsong_dwt_' + name + r"\(([^)]*)\)",
+                      src)
+        assert m, name
+        assert m.group(1).count(",") + 1 == len(
+            kernels._SIGNATURES[f"picsong_dwt_{name}"])
+
+
 def test_bound_counts_the_bytes():
     """The samples read once plus the int32 codeblocks written once, over
     3.35 TB/s (meta tensors: shapes only)."""
@@ -226,7 +263,7 @@ def test_bound_counts_the_bytes():
     assert ms == pytest.approx(0.0235, abs=1e-4)
 
 
-# -- a model of the kernels' tiling ----------------------------------------
+# -- a model of X4's tiling (X2's before it was lifted in registers) --------
 
 def _step(t, vert, par, lines, g0, n, f):
     """csrc/dwt_common.cuh lift_step on a numpy tile: positions of parity
@@ -284,8 +321,8 @@ def _tiles(h, w):
 
 
 def _model_forward_level(plane, lossy):
-    """One level of csrc/dwt_forward.cu on a numpy plane -> (ll, hl, lh,
-    hh), unquantized."""
+    """One forward level on X4's tiling (a 64x64 tile with its halo lifted
+    a step at a time) on a numpy plane -> (ll, hl, lh, hh), unquantized."""
     h, w = plane.shape
     tile, halo = dwt_cuda.TILE, dwt_cuda.HALO[lossy]
     side = tile + 2 * halo
@@ -351,4 +388,171 @@ def test_tiling_model_equals_whole_plane_lifting(lossy):
             *(torch.from_numpy(np.ascontiguousarray(b)) for b in got),
             lossy), lossy)
         assert np.array_equal(back, want_back.numpy()), f"reverse level {level}"
+        cur = np.ascontiguousarray(got[0])
+
+
+# -- a model of X2's work split (csrc/dwt_forward.cu) ------------------------
+
+def _x2_steps(lossy, scale_odd):
+    """dwt_common.cuh lift_forward_regs: (parity, f) per step."""
+    al, be, ga, de, k1, k2 = _f32(spec.I97_ALPHA, spec.I97_BETA,
+                                  spec.I97_GAMMA, spec.I97_DELTA, spec.I97_K1,
+                                  spec.I97_K2)
+    if not lossy:
+        return [(1, lambda x, a, b: x - ((a + b) >> 1)),
+                (0, lambda x, a, b: x + ((a + b + 2) >> 2))]
+    steps = [(1, lambda x, a, b: x + (a + b) * al),
+             (0, lambda x, a, b: x + (a + b) * be),
+             (1, lambda x, a, b: x + (a + b) * ga),
+             (0, lambda x, a, b: (x + (a + b) * de) * k2)]
+    if scale_odd:
+        steps.append((1, lambda x, a, b: x * k1))
+    return steps
+
+
+def _x2_lift_strips(v, g0, n, lossy, scale_odd):
+    """lift_regs on register strips v (..., N), the strip's first position
+    at plane index g0 (...): the edge rule's selects only in strips with
+    g0 <= 0 or g0 + N >= n (the kernel's kEdge variant), the others
+    lifted without them, as the kernel does."""
+    size = v.shape[-1]
+    edge = (g0 <= 0) | (g0 + size >= n)
+    lo, hi = -g0, n - 1 - g0
+    for par, f in _x2_steps(lossy, scale_odd):
+        for i in range(par, size, 2):
+            a = v[..., i - 1 if i > 0 else i + 1]
+            b = v[..., i + 1 if i + 1 < size else i - 1]
+            if par:
+                b = np.where(edge & (i >= hi), a, b)
+            else:
+                a = np.where(edge & (i <= lo), b, a)
+            v[..., i] = f(v[..., i], a, b)
+    return v
+
+
+def _x2_load(plane, y0, x0, halo, kbytes, vec):
+    """The tile arrays A (tiles_y, tiles_x, 72, 72) of one level: the
+    chunks of 16 / kbytes values at the aligned columns x0 - lead + w * q,
+    the groups of 4 inside A's columns (x0 - 4 ..) stored; a vector chunk
+    is in the plane whole or not at all, a scalar one a value at a time.
+    Every column of A is stored by exactly one group."""
+    h, w = plane.shape
+    pad, side = dwt_cuda.X2_PAD, dwt_cuda.TILE + 2 * dwt_cuda.X2_PAD
+    width = dwt_cuda.VECTOR_BYTES // kbytes
+    lead = max(width, pad)
+    padded = np.zeros((h + 2 * side, w + 4 * side), plane.dtype)
+    padded[side:side + h, 2 * side:2 * side + w] = plane
+    rows = np.arange(pad - halo, pad + dwt_cuda.TILE + halo)
+    gy = y0[:, None] - pad + rows[None, :]                    # (ty, rows)
+    row_in = (gy >= 0) & (gy < h)
+    tiles = np.zeros((len(y0), len(x0), side, side), plane.dtype)
+    cover = np.zeros(side, int)
+    for q in range((dwt_cuda.TILE + 2 * lead) // width):
+        xs = x0 - lead + width * q                            # (tx,)
+        if vec:
+            assert np.all((xs + width <= w) | (xs >= w))      # whole chunks
+        for m in range(width // 4):
+            col = pad - lead + width * q + 4 * m
+            if not 0 <= col < side:
+                continue
+            cover[col:col + 4] += 1
+            gx = xs[:, None] + 4 * m + np.arange(4)[None, :]  # (tx, 4)
+            vals = padded[(gy + side)[:, :, None, None],
+                          (gx + 2 * side)[None, None, :, :]]
+            col_in = (((xs >= 0) & (xs < w))[:, None] & np.ones(4, bool)
+                      if vec else (gx >= 0) & (gx < w))
+            keep = row_in[:, :, None, None] & col_in[None, None, :, :]
+            tiles[:, :, rows[0]:rows[-1] + 1, col:col + 4] = np.where(
+                keep, vals, 0).transpose(0, 2, 1, 3)
+    assert np.all(cover == 1)
+    return tiles
+
+
+def _model_x2_level(plane, lossy, kbytes, vec):
+    """One level of csrc/dwt_forward.cu on a numpy plane -> (ll, hl, lh,
+    hh), unquantized (HL, HH times K1 as the store does), every band
+    position written exactly once."""
+    h, w = plane.shape
+    tile, strip = dwt_cuda.TILE, dwt_cuda.X2_STRIP
+    pad, halo = dwt_cuda.X2_PAD, dwt_cuda.HALO[lossy]
+    size = strip + 2 * halo
+    y0 = np.arange(0, h, tile)
+    x0 = np.arange(0, w, tile)
+    a = _x2_load(plane, y0, x0, halo, kbytes, vec)
+    # vertical: strip s of every column pad - halo + c, c < 64 + 2 halo
+    cols = np.arange(pad - halo, pad + tile + halo)
+    b = np.zeros((len(y0), len(x0), tile, a.shape[-1]), plane.dtype)
+    for s_ in range(tile // strip):
+        g0 = y0 + strip * s_ - halo
+        live = g0 + halo < h
+        first = pad - halo + strip * s_
+        v = a[:, :, first:first + size][..., cols].transpose(0, 1, 3, 2)
+        v = _x2_lift_strips(v.copy(), g0[:, None, None], h, lossy, True)
+        out = v[..., halo:halo + strip].transpose(0, 1, 3, 2)
+        rows_b = b[:, :, strip * s_:strip * (s_ + 1)]       # a view
+        rows_b[..., cols] = np.where(live[:, None, None, None], out,
+                                     rows_b[..., cols])
+    # horizontal: strip k of every tile row r; low and high coefficients
+    bands = np.zeros((4, h // 2, w // 2), plane.dtype)
+    count = np.zeros((4, h // 2, w // 2), int)
+    k1 = np.float32(spec.I97_K1)
+    for k in range(tile // strip):
+        g0 = x0 + strip * k - halo
+        first = pad - halo + strip * k
+        v = _x2_lift_strips(b[..., first:first + size].copy(),
+                            g0[None, :, None], w, lossy, False)
+        lo_hi = (v[..., halo:halo + strip:2], v[..., halo + 1:halo + strip:2])
+        for yl in range(tile // 2):
+            for dy in (0, 1):
+                r = 2 * yl + dy
+                y = y0 // 2 + yl
+                for dx in (0, 1):
+                    vals = lo_hi[dx][:, :, r]                 # (ty, tx, 8)
+                    if lossy and dx:
+                        vals = vals * k1
+                    for c4 in range(2):
+                        x = x0 // 2 + strip // 2 * k + 4 * c4
+                        vec_store = (w // 2) % 4 == 0
+                        for e in range(4):
+                            xe = x + e
+                            ok = (y[:, None] < h // 2) & (xe[None, :] < w // 2)
+                            if vec_store:      # int4 stores: all 4 or none
+                                assert np.all(ok == ((y[:, None] < h // 2)
+                                              & (x[None, :] < w // 2)))
+                            yy, xx = np.nonzero(ok)
+                            band = 2 * dy + dx
+                            bands[band, y[yy], xe[xx]] = vals[yy, xx,
+                                                              4 * c4 + e]
+                            count[band, y[yy], xe[xx]] += 1
+    assert np.all(count == 1)
+    return tuple(bands)
+
+
+@pytest.mark.parametrize("h,w,levels,kbytes,vec", [
+    (2048, 2048, 5, 1, True),           # the main path
+    (1088, 1920, 5, 2, True),           # the video frame, 16-bit loads
+    (512, 512, 5, 1, False),            # an offset view: scalar loads
+    (128, 192, 6, 1, True),             # a 6-wide LL (scalar), 2-wide bands
+])
+@pytest.mark.parametrize("lossy", [False, True])
+def test_x2_model_equals_whole_plane_lifting(h, w, levels, kbytes, vec,
+                                             lossy):
+    """Every level of X2's work split (level 0 read in chunks of 16 /
+    kbytes samples, vector or scalar; deeper levels' LL planes in chunks
+    of 4 values, vector where the width is a multiple of 4) equals the
+    whole-plane lifting of transform/dwt.py."""
+    rng = np.random.default_rng(h + levels + int(lossy))
+    if lossy:
+        cur = (rng.normal(0, 60, (h, w))
+               * 2.0 ** rng.integers(-4, 5, (h, w))).astype(np.float32)
+    else:
+        cur = rng.integers(-40000, 40000, (h, w)).astype(np.int32)
+    for level in range(levels):
+        lw = cur.shape[1]
+        got = _model_x2_level(cur, lossy, kbytes if level == 0 else 4,
+                              vec if level == 0 else lw % 4 == 0)
+        want = dwt.lift_horizontal(*dwt.lift_vertical(
+            torch.from_numpy(cur), lossy), lossy)
+        for g, w_ in zip(got, want):
+            assert np.array_equal(g, w_.numpy()), f"level {level}"
         cur = np.ascontiguousarray(got[0])

@@ -16,6 +16,7 @@ import sys
 import time
 
 import numpy as np
+import torch
 
 from picsong_tpu.engine import video as jvideo
 from picsong_tpu_torch.core.header import CodecConfig
@@ -209,18 +210,23 @@ def test_scaling_report():
                          host_wall_s=[1.0]).efficiency is None
 
 
-def _timed(fn):
-    t0 = time.perf_counter()
+def _cpu_timed(fn):
+    """The CPU time of `fn` (the process's, over all its threads): other
+    processes on the machine lengthen a wall, not this."""
+    t0 = time.process_time()
     fn()
-    return time.perf_counter() - t0
+    return time.process_time() - t0
 
 
 def test_measured_scaling_efficiency_is_plausible(tmp_path):
     """Hosts run one after the other here, so the efficiency of measured
     encodes lands in (0, 1.05]: a superlinear number would mean a broken
-    baseline. After a warm-up, 4 turns of (single host, host 0, host 1),
-    the minimum of each side: turns keep a slow spell of a shared CPU from
-    landing on one side only."""
+    baseline. Each run is timed by the CPU time it takes, with torch on one
+    thread, not by the wall, so that other processes on a shared machine
+    (other test workers) cannot lengthen it by holding the CPU. The CPU's
+    own speed still drifts between runs, so after a warm-up 10 turns of
+    (single host, host 0, host 1) each give an efficiency, and their
+    median is held to the bound."""
     rng = np.random.default_rng(2)
     n_frames = 2
     frames = [make_image(rng, 64, 64) for _ in range(n_frames)]
@@ -235,13 +241,21 @@ def test_measured_scaling_efficiency_is_plausible(tmp_path):
     runs += [lambda h=h: encode_video_part(
         raw, merged, cfg, luts, PARAMS, frames=n_frames, num_hosts=hosts,
         host_id=h, batch=1, device="cpu") for h in range(hosts)]
-    for run in runs:
-        run()
-    times = np.array([[_timed(run) for run in runs] for _ in range(4)])
-    t_single, *walls = times.min(axis=0).tolist()
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)        # no intra-op pool spinning on the CPU
+    try:
+        for run in runs:
+            run()
+        times = [[_cpu_timed(run) for run in runs] for _ in range(10)]
+    finally:
+        torch.set_num_threads(threads)
     merge_parts(merged, hosts)
     assert read(merged) == read(single)
-    eff = ScalingReport(frames=n_frames, num_hosts=hosts, host_wall_s=walls,
-                        single_host_wall_s=t_single).efficiency
-    assert eff is not None and 0 < eff <= 1.05, \
-        f"implausible scaling efficiency {eff} ({times.tolist()})"
+    effs = [ScalingReport(frames=n_frames, num_hosts=hosts,
+                          host_wall_s=walls,
+                          single_host_wall_s=t_single).efficiency
+            for t_single, *walls in times]
+    assert all(e is not None and e > 0 for e in effs)
+    eff = float(np.median(effs))
+    assert 0 < eff <= 1.05, \
+        f"implausible scaling efficiency {eff} ({effs}; {times})"
