@@ -17,10 +17,11 @@ or of the JAX package `picsong_tpu` is imported:
   samples) in every case of DWT_CASES: 5/3 and 9/7 at qs 1, 0.5 and 0.7,
   wl 1-5, gray 8/12/16-bit signed and unsigned, RGB RCT and ICT at
   2048x2560, 1920x1088, a (8, 1088, 1920) and a (4, 3, 2048, 4096) batch,
-  8192x8192; X2 also on a view whose first sample is not 16-byte aligned
-  (DWT_OFFSET: its scalar-load variant); then their times and the torch
-  ops' at DWT_TIMED, and X2's device time by level at the first three
-  (`tools/kernel_ab.py` level_split);
+  8192x8192, 1984x1088 at 6 levels (bands 31 and 62 words wide); X2 also
+  on a view whose first sample is not 16-byte aligned, X4 on codeblocks
+  whose first word is not (DWT_OFFSET: their scalar-load variants); then
+  their times and the torch ops' at DWT_TIMED, and X2's and X4's device
+  time by level at the first three (`tools/kernel_ab.py` level_split);
 - gray lossless 5/3, 2048x2048 at 5 wavelet levels, neutral and trained
   LUTs (the main path; then every layer of it is timed);
 - the codestream pack and unpack X3 (`assembly/pack.py`, `pack_phase`,
@@ -245,12 +246,17 @@ DWT_CASES = (
      8, False),
     ("8192^2 5/3 wl=5", 8192, 8192, 0, False, False, 1.0, 5, 8, False),
     ("8192^2 9/7 qs 1 wl=5", 8192, 8192, 0, False, True, 1.0, 5, 8, False),
+    # bands 31 and 62 wide at levels 5 and 4: X2 stores and X4 loads
+    # them a word at a time
+    ("1984x1088 9/7 qs 1 wl=6", 1088, 1984, 0, False, True, 1.0, 6, 8,
+     False),
 )
-# X2 on views of a case's samples whose first sample is not 16-byte
-# aligned (its scalar-load variant): (case label, samples skipped)
+# X2 on views of a case's samples, X4 on views of its codeblocks, whose
+# first sample or word is not 16-byte aligned (their scalar-load
+# variants): (case label, values skipped)
 DWT_OFFSET = (("2048^2 16-bit 9/7 qs 1 wl=5", 1),)
 # the shapes whose X2/X4 times the phase reports (case labels), the first
-# the main path's; X2's per-level split at the first three
+# the main path's; X2's and X4's per-level split at the first three
 DWT_TIMED = ("2048^2 5/3 wl=5", "(8, 1088, 1920) 5/3 wl=5",
              "8192^2 5/3 wl=5", "RGB 2048x2560 ICT qs 1 wl=5")
 
@@ -316,13 +322,17 @@ def dwt_phase(dev, tag: str) -> dict:
             _require(all(torch.equal(b, s) for b, s in zip(back, samples)),
                      f"dwt {label}: lossless X4(X2(samples)) == samples")
         cases[label] = (cfg, samples, blocks)
-    for label, skip in DWT_OFFSET:
-        cfg, samples, _ = cases[label]
+    def offset_views(tensors, skip):
         views = []
-        for s_ in samples:
-            buf = torch.zeros(s_.numel() + 16, dtype=s_.dtype, device=dev)
-            buf[skip:skip + s_.numel()] = s_.reshape(-1)
-            views.append(buf[skip:skip + s_.numel()].view(s_.shape))
+        for t in tensors:
+            buf = torch.zeros(t.numel() + 16, dtype=t.dtype, device=dev)
+            buf[skip:skip + t.numel()] = t.reshape(-1)
+            views.append(buf[skip:skip + t.numel()].view(t.shape))
+        return views
+
+    for label, skip in DWT_OFFSET:
+        cfg, samples, blocks = cases[label]
+        views = offset_views(samples, skip)
         _require(not dwt_cuda.vector_loads(views),
                  f"dwt {label} offset by {skip}: a scalar-load view")
         before = dwt_cuda.FORWARD_LAUNCHES
@@ -336,9 +346,22 @@ def dwt_phase(dev, tag: str) -> dict:
         err["forward"] = max(err["forward"], e)
         _require(e == 0, f"dwt {label} offset by {skip}: X2 kernel == plain "
                  f"(codeblocks, maximum), max abs err {e}")
+        views = offset_views(blocks, skip)
+        _require(not dwt_cuda.vector_block_loads(views),
+                 f"dwt {label} codeblocks offset by {skip}: a word-load view")
+        before = dwt_cuda.REVERSE_LAUNCHES
+        back = dwt_cuda.reverse(views, cfg)
+        back_p = dwt_cuda.reverse_plain(views, cfg)
+        torch.cuda.synchronize()
+        _require(dwt_cuda.REVERSE_LAUNCHES == before + 1,
+                 f"dwt {label} codeblocks offset by {skip}: X4 launched once")
+        e = max(diff(b, p) for b, p in zip(back, back_p))
+        err["reverse"] = max(err["reverse"], e)
+        _require(e == 0, f"dwt {label} codeblocks offset by {skip}: X4 "
+                 f"kernel == plain (samples), max abs err {e}")
     print(f"{tag} DWT phase: X2 and X4 byte-equal to their plain versions "
-          f"in {len(DWT_CASES)} cases and X2 on {len(DWT_OFFSET)} "
-          f"16-byte-misaligned view(s) (max abs err forward "
+          f"in {len(DWT_CASES)} cases and on {len(DWT_OFFSET)} "
+          f"16-byte-misaligned view(s) each (max abs err forward "
           f"{err['forward']}, reverse {err['reverse']}), lossless round "
           f"trips exact; {time.perf_counter() - started:.1f} s")
     times = {}
@@ -367,19 +390,20 @@ def dwt_phase(dev, tag: str) -> dict:
               f"{t['reverse_plain_ms']:.4f} ms; bound {bound:.5f} ms ({by}), "
               f"share {bound / t['forward_ms']:.4f} / "
               f"{bound / t['reverse_ms']:.4f}")
-    # X2's device time by level: wl = 1 .. 5 on the same planes, 5/3 and
-    # 9/7 qs 1, the differences (tools/kernel_ab.py level_split)
-    split = {}
+    # X2's and X4's device time by level: wl = 1 .. 5 on the same planes,
+    # 5/3 and 9/7 qs 1, the differences (tools/kernel_ab.py level_split)
+    split = {"forward": {}, "reverse": {}}
     for label in DWT_TIMED[:3]:
         _, samples, _ = cases[label]
-        for lossy in (False, True):
-            wavelet = "9/7 qs 1" if lossy else "5/3"
-            levels = split[(label, wavelet)] = kernel_ab.level_split(
-                dwt_cuda.forward, samples[0], lossy)
-            print(f"{tag} dwt {label}: X2 {wavelet} by level (device ms, "
-                  f"levels 0..{len(levels) - 1}): "
-                  + " / ".join(f"{v:.4f}" for v in levels)
-                  + f" = {sum(levels):.4f}")
+        for d, name in (("forward", "X2"), ("reverse", "X4")):
+            for lossy in (False, True):
+                wavelet = "9/7 qs 1" if lossy else "5/3"
+                levels = split[d][(label, wavelet)] = kernel_ab.level_split(
+                    dwt_cuda, samples[0], lossy, reverse=d == "reverse")
+                print(f"{tag} dwt {label}: {name} {wavelet} by level (device "
+                      f"ms, levels 0..{len(levels) - 1}): "
+                      + " / ".join(f"{v:.4f}" for v in levels)
+                      + f" = {sum(levels):.4f}")
     print(f"{tag} DWT phase done in {time.perf_counter() - started:.1f} s")
     return {"err": err, "times": times, "split": split}
 
@@ -2198,8 +2222,9 @@ def main() -> int:
         "forward": "16-row and 16-column strips lifted in registers (one "
                    "barrier between the passes), 16-byte sample loads, "
                    "staged 16-byte codeblock stores",
-        "reverse": "a 64x64 tile with its halo lifted in shared memory, a "
-                   "barrier a lifting step"}
+        "reverse": "16-column and 16-row strips lifted in registers (a "
+                   "barrier after the load and after each pass), 16-byte "
+                   "codeblock loads, staged 16-byte sample stores"}
     for d, line in (("forward", 157), ("reverse", 187)):
         entries.append({
             "name": f"dwt_{d}", "route": "cuda", "design": designs[d],
@@ -2218,10 +2243,9 @@ def main() -> int:
                         "bound_ms": t["bound_ms"],
                         "bound_by": t["bound_by"]}
                        for label, t in dwt["times"].items()]})
-        if d == "forward":
-            entries[-1]["levels_ms"] = [
-                {"workload": label, "wavelet": wavelet, "ms": levels}
-                for (label, wavelet), levels in dwt["split"].items()]
+        entries[-1]["levels_ms"] = [
+            {"workload": label, "wavelet": wavelet, "ms": levels}
+            for (label, wavelet), levels in dwt["split"][d].items()]
     # X3 at the main path's streams; launches on its two CLI round trips
     main_x3 = x3["times"][f"{SIZE}^2 wl={LEVELS} main path"]
     for d, line in (("pack", 1818), ("unpack", 1832)):

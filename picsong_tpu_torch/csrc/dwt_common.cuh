@@ -14,15 +14,14 @@
 // right odd twice), taken on the position's index in the level's plane:
 // exactly `transform/dwt.py`.
 //
-// X4 lifts its tile in shared memory, a step at a time (`lift_step`): one
-// pass over the positions of one parity and a __syncthreads(); a step
-// writes only that parity and reads only the other, so a pass has no
-// races. X2 lifts strips of 16 positions (plus the halo) in registers
-// (`lift_regs`), every step of a level fully unrolled, with the edge rule
-// as a select only in strips that reach the plane's first or last
-// position. The 9/7 arithmetic rounds once per JAX op through explicit
-// round-to-nearest intrinsics (__fadd_rn, __fmul_rn, __fdiv_rn,
-// __fmaf_rn), which nvcc never contracts or reorders.
+// Both kernels lift strips of 16 positions (plus the halo) in registers
+// (`lift_regs`), every step of a level fully unrolled: X2 columns, then
+// rows; X4 rows, then columns. The edge rule is a select only in strips
+// that reach the plane's first or last position. A CTA's threads meet at
+// a barrier between the passes, never inside one. The 9/7 arithmetic
+// rounds once per JAX op through explicit round-to-nearest intrinsics
+// (__fadd_rn, __fsub_rn, __fmul_rn, __fmaf_rn), which nvcc never contracts
+// or reorders, and divides through `div_rn`.
 //
 // What bounds these kernels on an H100: bytes. A level reads its plane
 // (+13% of halo for 5/3, +27% for 9/7) and writes its subbands; the bound
@@ -41,7 +40,8 @@ namespace picsong {
 namespace dwt {
 
 constexpr int kTile = 64;           // a CTA's tile of the level's plane
-constexpr int kThreads = 256;
+constexpr int kStrip = 16;          // positions a thread lifts a pass
+constexpr int kStrips = kTile / kStrip;
 constexpr int kBlockSide = 64;      // spec.CBLOCK_WIDTH, CBLOCK_LENGTH
 constexpr int kBlockWords = kBlockSide * kBlockSide;
 constexpr unsigned kFullMask = 0xffffffffu;
@@ -49,7 +49,6 @@ constexpr unsigned kFullMask = 0xffffffffu;
 template <bool kLossy>
 struct Tile {
   static constexpr int kHalo = kLossy ? 4 : 2;
-  static constexpr int kSide = kTile + 2 * kHalo;   // rows and columns
   using V = typename std::conditional<kLossy, float, int32_t>::type;
 };
 
@@ -59,12 +58,15 @@ enum SampleType { kU8 = 0, kI8 = 1, kU16 = 2, kI16 = 3 };
 
 // The float32 constants of one level, from the wrapper's array (its
 // layout: alpha, beta, gamma, delta, K1, K2, the reconstruction factor,
-// the rounding bias, qs, the 3x3 ICT of the direction row-major, then per
-// level the gains of LL, HL, LH, HH -- times qs forward).
+// the rounding bias, qs, the reciprocals 1 / K1, 1 / K2, 1 / qs, the 3x3
+// ICT of the direction row-major, then per level the gains of LL, HL, LH,
+// HH -- times qs forward -- and their reciprocals). Each reciprocal is the
+// float32 quotient rounded once, as `div_rn` needs.
 struct Consts {
   float alpha, beta, gamma, delta, k1, k2, recon, bias, qs;
+  float rk1, rk2, rqs;
   float ict[9];
-  float gain[4];
+  float gain[4], rgain[4];
 };
 
 inline Consts level_consts(const float* host, int level) {
@@ -78,8 +80,14 @@ inline Consts level_consts(const float* host, int level) {
   c.recon = host[6];
   c.bias = host[7];
   c.qs = host[8];
-  for (int i = 0; i < 9; ++i) c.ict[i] = host[9 + i];
-  for (int i = 0; i < 4; ++i) c.gain[i] = host[18 + 4 * level + i];
+  c.rk1 = host[9];
+  c.rk2 = host[10];
+  c.rqs = host[11];
+  for (int i = 0; i < 9; ++i) c.ict[i] = host[12 + i];
+  for (int i = 0; i < 4; ++i) {
+    c.gain[i] = host[21 + 8 * level + i];
+    c.rgain[i] = host[21 + 8 * level + 4 + i];
+  }
   return c;
 }
 
@@ -95,6 +103,12 @@ __device__ __forceinline__ float gain_of(const Consts& c, int band) {
                                                          : c.gain[3]));
 }
 
+__device__ __forceinline__ float rgain_of(const Consts& c, int band) {
+  return band == 0 ? c.rgain[0]
+                   : (band == 1 ? c.rgain[1] : (band == 2 ? c.rgain[2]
+                                                          : c.rgain[3]));
+}
+
 __device__ __forceinline__ int32_t load_sample(const void* p, int64_t i,
                                                int type) {
   switch (type) {
@@ -102,16 +116,6 @@ __device__ __forceinline__ int32_t load_sample(const void* p, int64_t i,
     case kI8: return static_cast<const int8_t*>(p)[i];
     case kU16: return static_cast<const uint16_t*>(p)[i];
     default: return static_cast<const int16_t*>(p)[i];
-  }
-}
-
-__device__ __forceinline__ void store_sample(void* p, int64_t i, int type,
-                                             int32_t v) {
-  switch (type) {
-    case kU8: static_cast<uint8_t*>(p)[i] = static_cast<uint8_t>(v); break;
-    case kI8: static_cast<int8_t*>(p)[i] = static_cast<int8_t>(v); break;
-    case kU16: static_cast<uint16_t*>(p)[i] = static_cast<uint16_t>(v); break;
-    default: static_cast<int16_t*>(p)[i] = static_cast<int16_t>(v); break;
   }
 }
 
@@ -123,55 +127,31 @@ __device__ __forceinline__ int64_t block_word(int y, int x, int bx) {
          (y & (kBlockSide - 1)) * kBlockSide + (x & (kBlockSide - 1));
 }
 
-// One lifting step along an axis of the tile t (kSide x kSide, row-major):
-// every position of parity `par` on lines [l0, l1) across the axis becomes
-// f(x, a, b) of itself and its neighbours a (left) and b (right); g0 is
-// the plane index of tile position 0 along the axis, n the plane's length.
-// An odd position reads the evens beside it, the right one replaced by the
-// left at the plane's end (`_nxt`); an even one the odds beside it, the
-// left replaced by the right at the plane's start (`_prv`). At the tile's
-// edge (a halo position, whose value is not used) the same replacement
-// keeps the read inside the tile. Consecutive threads take consecutive
-// columns: along the vertical axis lines, along the horizontal positions.
-template <int kSide, bool kVert, class V, class F>
-__device__ __forceinline__ void lift_step(V* t, int par, int l0, int l1,
-                                          int g0, int n, F f) {
-  constexpr int kHalf = kSide / 2;
-  constexpr int kStride = kVert ? kSide : 1;
-  const int lines = l1 - l0;
-  for (int i = threadIdx.x; i < kHalf * lines; i += kThreads) {
-    int pos, line;
-    if (kVert) {
-      line = l0 + i % lines;
-      pos = 2 * (i / lines) + par;
-    } else {
-      pos = 2 * (i % kHalf) + par;
-      line = l0 + i / kHalf;
-    }
-    const int g = g0 + pos;
-    int a, b;
-    if (par) {
-      a = pos - 1;
-      b = (g + 1 < n && pos + 1 < kSide) ? pos + 1 : pos - 1;
-    } else {
-      b = pos + 1;
-      a = (g > 0 && pos > 0) ? pos - 1 : pos + 1;
-    }
-    V* base = t + (kVert ? line : line * kSide);
-    base[pos * kStride] = f(base[pos * kStride], base[a * kStride],
-                            base[b * kStride]);
-  }
-  __syncthreads();
+// x / b rounded once to nearest (as __fdiv_rn), from y = RN(1 / b), the
+// wrapper's float32 reciprocal: q0 = x y is within an ulp and a half of
+// x / b, q1 = q0 + (x - b q0) y rounded once is within an ulp (faithful),
+// and one more such step rounds correctly (Markstein's theorem: y within
+// half an ulp of 1 / b, the remainder x - b q exact). It holds where x, x /
+// b and the remainders are normal floats (|x| above ~2^-100), as every
+// value of a plane is; x = 0 keeps its sign. Five operations without a
+// branch. With __fdiv_rn (a range check, and a slow path it calls for a
+// zero dividend) X4's 9/7 took 0.110 ms at 2048^2 on an H100, with this
+// 0.064 (tests/test_torch_dwt_cuda.py checks every mantissa for K1, K2).
+__device__ __forceinline__ float div_rn(float x, float b, float y) {
+  const float q0 = __fmul_rn(x, y);
+  const float q1 = __fmaf_rn(__fmaf_rn(-q0, b, x), y, q0);
+  const float q = __fmaf_rn(__fmaf_rn(-q1, b, x), y, q1);
+  return x == 0.0f ? x : q;
 }
 
 // One lifting step on a strip v of N consecutive positions along an axis,
-// held in registers (X2): every index of parity kPar becomes f(x, a, b) of
-// itself and its neighbours a (left) and b (right), with lift_step's
-// neighbour rule. With kEdge, `lo` and `hi` are the indices of the plane's
-// first and last position (either may lie outside the strip): the odd
-// index before `hi` + 1 reads its left even twice (`_nxt`), the even index
-// at `lo` its right odd (`_prv`); without, the strip lies strictly inside
-// the plane and no select is made. At the strip's own ends (halo
+// held in registers: every index of parity kPar becomes f(x, a, b) of
+// itself and its neighbours a (left) and b (right). With kEdge, `lo` and
+// `hi` are the indices of the plane's first and last position (either may
+// lie outside the strip): the odd index before `hi` + 1 reads its left
+// even twice (`_nxt`), the even index at `lo` its right odd (`_prv`);
+// without, the strip lies strictly inside the plane and no select is
+// made. At the strip's own ends (halo
 // positions, whose values are not used) the read stays inside the strip.
 template <int kPar, bool kEdge, int N, class V, class F>
 __device__ __forceinline__ void lift_regs(V (&v)[N], int lo, int hi, F f) {
@@ -187,9 +167,8 @@ __device__ __forceinline__ void lift_regs(V (&v)[N], int lo, int hi, F f) {
   }
 }
 
-// Forward lifting of a register strip (`dwt._fwd53` / `_fwd97`): the steps
-// of lift_step's forward chain in the same order and arithmetic, the odd
-// positions' final `* K1` only with kScaleOdd (the horizontal pass folds
+// Forward lifting of a register strip (`dwt._fwd53` / `_fwd97`), the odd
+// positions' final `* K1` only with kScaleOdd (X2's horizontal pass folds
 // it into the store).
 template <bool kLossy, bool kEdge, bool kScaleOdd, class V, int N>
 __device__ __forceinline__ void lift_forward_regs(V (&v)[N], int lo, int hi,
@@ -225,39 +204,38 @@ __device__ __forceinline__ void lift_forward_regs(V (&v)[N], int lo, int hi,
   }
 }
 
-// Inverse lifting along one axis (`dwt._inv53` / `_inv97`), the odd
-// positions' first `/ K1` only when `scale_odd` (the horizontal pass folds
+// Inverse lifting of a register strip (`dwt._inv53` / `_inv97`), the odd
+// positions' first `/ K1` only with kScaleOdd (X4's horizontal pass folds
 // it into the load).
-template <bool kLossy, bool kVert>
-__device__ __forceinline__ void lift_reverse(typename Tile<kLossy>::V* t,
-                                             int l0, int l1, int g0, int n,
-                                             const Consts& c, bool scale_odd) {
-  constexpr int S = Tile<kLossy>::kSide;
+template <bool kLossy, bool kEdge, bool kScaleOdd, class V, int N>
+__device__ __forceinline__ void lift_reverse_regs(V (&v)[N], int lo, int hi,
+                                                  const Consts& c) {
+  static_assert(std::is_same<V, typename Tile<kLossy>::V>::value,
+                "int32 for 5/3, float for 9/7");
   if constexpr (!kLossy) {
-    lift_step<S, kVert>(t, 0, l0, l1, g0, n, [](int32_t x, int32_t a,
-                                                int32_t b) {
+    lift_regs<0, kEdge>(v, lo, hi, [](int32_t x, int32_t a, int32_t b) {
       return x - ((a + b + 2) >> 2);
     });
-    lift_step<S, kVert>(t, 1, l0, l1, g0, n, [](int32_t x, int32_t a,
-                                                int32_t b) {
+    lift_regs<1, kEdge>(v, lo, hi, [](int32_t x, int32_t a, int32_t b) {
       return x + ((a + b) >> 1);
     });
   } else {
     const float al = c.alpha, be = c.beta, ga = c.gamma, de = c.delta;
-    const float k1 = c.k1, k2 = c.k2;
-    if (scale_odd)
-      lift_step<S, kVert>(t, 1, l0, l1, g0, n,
-                          [=](float x, float, float) { return __fdiv_rn(x, k1); });
-    lift_step<S, kVert>(t, 0, l0, l1, g0, n, [=](float x, float a, float b) {
-      return __fsub_rn(__fdiv_rn(x, k2), __fmul_rn(__fadd_rn(a, b), de));
+    const float k1 = c.k1, k2 = c.k2, rk1 = c.rk1, rk2 = c.rk2;
+    if constexpr (kScaleOdd) {
+#pragma unroll
+      for (int i = 1; i < N; i += 2) v[i] = div_rn(v[i], k1, rk1);
+    }
+    lift_regs<0, kEdge>(v, lo, hi, [=](float x, float a, float b) {
+      return __fsub_rn(div_rn(x, k2, rk2), __fmul_rn(__fadd_rn(a, b), de));
     });
-    lift_step<S, kVert>(t, 1, l0, l1, g0, n, [=](float x, float a, float b) {
+    lift_regs<1, kEdge>(v, lo, hi, [=](float x, float a, float b) {
       return __fsub_rn(x, __fmul_rn(__fadd_rn(a, b), ga));
     });
-    lift_step<S, kVert>(t, 0, l0, l1, g0, n, [=](float x, float a, float b) {
+    lift_regs<0, kEdge>(v, lo, hi, [=](float x, float a, float b) {
       return __fsub_rn(x, __fmul_rn(__fadd_rn(a, b), be));
     });
-    lift_step<S, kVert>(t, 1, l0, l1, g0, n, [=](float x, float a, float b) {
+    lift_regs<1, kEdge>(v, lo, hi, [=](float x, float a, float b) {
       return __fsub_rn(x, __fmul_rn(__fadd_rn(a, b), al));
     });
   }

@@ -51,8 +51,6 @@ namespace dwt {
 namespace {
 
 constexpr int kFwdThreads = 288;          // 4 vertical strips of 72 columns
-constexpr int kStrip = 16;                // positions a thread lifts a pass
-constexpr int kStrips = kTile / kStrip;
 constexpr int kPad = 4;                   // A and B start 4 rows / columns
 constexpr int kSideA = kTile + 2 * kPad;  //   before the tile
 constexpr int kPitchA = kSideA + 4;

@@ -51,9 +51,9 @@ _SIGNATURES = {
     # levels, lossy, offset, consts, scratch, blocks, top, stream
     "picsong_dwt_forward": [_P, _P, _P, _I, _I, _L, _L, *[_I] * 7, _P, _P,
                             _P, _P, _P],
-    # b0, b1, b2, batch, comps, h, w, levels, lossy, offset, lo, hi, type,
-    # consts, scratch, out, stream
-    "picsong_dwt_reverse": [_P, _P, _P, *[_I] * 10, _P, _P, _P, _P],
+    # b0, b1, b2, vec, batch, comps, h, w, levels, lossy, offset, lo, hi,
+    # type, consts, scratch, out, stream
+    "picsong_dwt_reverse": [_P, _P, _P, *[_I] * 11, _P, _P, _P, _P],
     # streams, sizes, n, header (host, or null), capacity, offsets, out,
     # stream
     "picsong_pack": [_P, _P, _I, _P, _L, _P, _P, _P],

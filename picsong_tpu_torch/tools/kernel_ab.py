@@ -34,12 +34,14 @@ lossless one also the device encode and decode and the CLI round trip
 (host clock with a synchronize, as chip_smoke.py's). Outputs must be
 equal.
 
-`--split` instead times X2 (`transform/dwt_cuda.py` `forward`) level by
-level, for this tree and, with `--other`, the other tree's in turns: the
-device time (`graph_ms`) at wl = 1 .. 5 on the same planes, at the
-SPLIT_SHAPES (2048^2, the (8, 1088, 1920) video batch, 8192^2), each 5/3
-and 9/7 qs 1; level 0 is the wl=1 time, level k the wl=k+1 time less the
-wl=k time. One JSON line per (tree, shape, wavelet).
+`--split` instead times X2 and X4 (`transform/dwt_cuda.py` `forward` and
+`reverse`) level by level, for this tree and, with `--other`, the other
+tree's in turns: the device time (`graph_ms`) at wl = 1 .. 5 on the same
+planes, at the SPLIT_SHAPES (2048^2, the (8, 1088, 1920) video batch,
+8192^2), each 5/3 and 9/7 qs 1; level 0 is the wl=1 time (for X4 with its
+finish), level k the wl=k+1 time less the wl=k time. X4's codeblocks
+come from the tree's `forward` at each wl, outside the graph. One JSON
+line per (tree, kernel, shape, wavelet).
 """
 
 from __future__ import annotations
@@ -144,23 +146,33 @@ def split_planes(h: int, w: int, frames: int, dev):
         *((frames,) if frames else ()), h, w)
 
 
-def level_split(forward, plane, lossy: bool, levels: int = SPLIT_LEVELS,
-                config=None) -> list[float]:
-    """X2's device time by level on one gray plane (or frame batch):
-    `graph_ms` of `forward([plane], cfg)` at wl = 1 .. levels, then the
-    differences (level 0 the wl=1 time). `config` is the tree's
-    CodecConfig class (default this tree's)."""
+def level_split(dwt_cuda, plane, lossy: bool, reverse: bool = False,
+                levels: int = SPLIT_LEVELS, config=None) -> list[float]:
+    """X2's (or with `reverse` X4's) device time by level on one gray plane
+    (or frame batch): `graph_ms` of the tree module `dwt_cuda`'s
+    `forward([plane], cfg)` (or `reverse` of its codeblocks, made by
+    `forward` outside the graph) at wl = 1 .. levels, then the differences
+    (level 0 the wl=1 time). `config` is the tree's CodecConfig class
+    (default this tree's)."""
     if config is None:
         from ..core.header import CodecConfig as config
     h, w = plane.shape[-2:]
-    cum = [graph_ms(lambda: forward([plane], config(
-        width=w, height=h, wavelet_levels=wl, is_lossy=lossy, qs=1.0)))
-        for wl in range(1, levels + 1)]
+    cum = []
+    for wl in range(1, levels + 1):
+        cfg = config(width=w, height=h, wavelet_levels=wl, is_lossy=lossy,
+                     qs=1.0)
+        if reverse:
+            blocks = dwt_cuda.forward([plane], cfg)[0]
+            cum.append(graph_ms(lambda: dwt_cuda.reverse(blocks, cfg)))
+            del blocks
+        else:
+            cum.append(graph_ms(lambda: dwt_cuda.forward([plane], cfg)))
     return [cum[0]] + [b - a for a, b in zip(cum, cum[1:])]
 
 
 def _split(other_root: str | None, card: str) -> int:
-    """X2's per-level device time, this tree's and the other's in turns."""
+    """X2's and X4's per-level device time, this tree's and the other's in
+    turns."""
     import torch
 
     pkgs = {"this": "picsong_tpu_torch"}
@@ -174,20 +186,21 @@ def _split(other_root: str | None, card: str) -> int:
     dev = torch.device("cuda")
     for label, h, w, frames in SPLIT_SHAPES:
         plane = split_planes(h, w, frames, dev)
-        for lossy in (False, True):
-            got = {t: [] for t in trees}
-            for t in turns:
-                dwt_cuda, config = trees[t]
-                got[t].append(level_split(dwt_cuda.forward, plane, lossy,
-                                          config=config))
-            for t, runs in got.items():
-                levels = [statistics.median(r[k] for r in runs)
-                          for k in range(SPLIT_LEVELS)]
-                print(json.dumps({
-                    "tree": t, "shape": label,
-                    "wavelet": "9/7 qs 1" if lossy else "5/3",
-                    "levels_ms": levels, "total_ms": sum(levels),
-                    "n": len(runs), "card": card}), flush=True)
+        for kernel, reverse in (("X2", False), ("X4", True)):
+            for lossy in (False, True):
+                got = {t: [] for t in trees}
+                for t in turns:
+                    dwt_cuda, config = trees[t]
+                    got[t].append(level_split(dwt_cuda, plane, lossy, reverse,
+                                              config=config))
+                for t, runs in got.items():
+                    levels = [statistics.median(r[k] for r in runs)
+                              for k in range(SPLIT_LEVELS)]
+                    print(json.dumps({
+                        "tree": t, "kernel": kernel, "shape": label,
+                        "wavelet": "9/7 qs 1" if lossy else "5/3",
+                        "levels_ms": levels, "total_ms": sum(levels),
+                        "n": len(runs), "card": card}), flush=True)
         del plane
         torch.cuda.empty_cache()
     return 0

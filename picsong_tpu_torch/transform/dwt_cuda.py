@@ -29,8 +29,9 @@ synchronising; there is no path from a CUDA tensor to the plain version.
 
 The plain version is the arithmetic contract: the 9/7 lifting rounds once
 per JAX op, and the ICT is the oracle's FMA chain (`fma_row`); the kernels
-compute the same with explicit round-to-nearest intrinsics, so both give
-the same bytes.
+compute the same with explicit round-to-nearest intrinsics, and divide by
+a constant exactly through its float32 `reciprocal` (csrc/dwt_common.cuh
+`div_rn`), so both give the same bytes.
 """
 
 from __future__ import annotations
@@ -56,13 +57,20 @@ REVERSE_LAUNCHES = 0
 # neighbouring samples on each side
 TILE = 64
 HALO = {False: 2, True: 4}
-# X2's work split (csrc/dwt_forward.cu kStrip, kPad): a thread lifts
-# X2_STRIP positions of a column, then of a row, plus HALO each side; the
-# tile's arrays in shared memory start X2_PAD rows and columns before it
-X2_STRIP = 16
+# the kernels' work split (csrc/dwt_common.cuh kStrip): a thread lifts
+# STRIP positions of a column, then of a row (X2; X4 a row, then a
+# column), plus HALO each side. X2's tile arrays in shared memory start
+# X2_PAD rows and columns before the tile (dwt_forward.cu kPad); X4 reads
+# a tile's band rows in chunks of 4 words from X4_LEAD words before the
+# tile's band columns and stages X4_STAGE_COLS of them from 2 before
+# (dwt_reverse.cu kLead, kStageCols)
+STRIP = 16
 X2_PAD = 4
+X4_LEAD = 4
+X4_STAGE_COLS = 36
 # the bytes of a vector load: X2 reads level 0 in 16-byte chunks where the
-# sample planes allow it (`vector_loads`)
+# sample planes allow it (`vector_loads`), X4 its codeblocks where their
+# bases allow it (`vector_block_loads`)
 VECTOR_BYTES = 16
 
 # the H100 SXM's float32 rate outside the tensor cores
@@ -230,22 +238,33 @@ def _geometry(cfg: CodecConfig) -> tuple[int, int]:
     return ah, aw
 
 
+def reciprocal(x) -> np.float32:
+    """1 / x in float32, rounded once: the kernels' `div_rn` divides by x
+    through it."""
+    return np.float32(1) / np.float32(x)
+
+
 @functools.lru_cache(maxsize=None)
 def _constants(levels: int, qs: float, forward: bool):
     """The float32 constants the kernels read, bit for bit from
     `core/spec.py`: the lifting steps, the reconstruction factor, the
-    rounding bias, qs, the ICT matrix of the direction and per level the
-    four gains (LL, HL, LH, HH) -- times qs on the way forward, a numpy
-    float32 product as in `dwt.quantize_level`. The C entry points copy
-    them into each launch's arguments."""
+    rounding bias, qs, the reciprocals of K1, K2 and qs, the ICT matrix of
+    the direction and per level the four gains (LL, HL, LH, HH) -- times
+    qs on the way forward, a numpy float32 product as in
+    `dwt.quantize_level` -- and their reciprocals. The C entry points copy
+    them into each launch's arguments (csrc/dwt_common.cuh
+    level_consts)."""
     qs32 = np.float32(qs)
-    gains = spec.WAVELET_QSTEPS[:levels]
+    gains = spec.WAVELET_QSTEPS[:levels].astype(np.float32)
+    gains = gains * qs32 if forward else gains
     vals = np.concatenate([
         [spec.I97_ALPHA, spec.I97_BETA, spec.I97_GAMMA, spec.I97_DELTA,
          spec.I97_K1, spec.I97_K2, spec.RECONSTRUCTION_FACTOR,
-         np.float32(_ROUND_BIAS), qs32],
+         np.float32(_ROUND_BIAS), qs32, reciprocal(spec.I97_K1),
+         reciprocal(spec.I97_K2), reciprocal(qs32)],
         (spec.ICT_FORWARD if forward else spec.ICT_BACKWARD).ravel(),
-        (gains * qs32 if forward else gains).ravel()]).astype(np.float32)
+        np.concatenate([gains, reciprocal(1) / gains], axis=1).ravel(),
+    ]).astype(np.float32)
     return (ctypes.c_float * vals.size)(*vals.tolist())
 
 
@@ -297,6 +316,15 @@ def vector_loads(samples: list[torch.Tensor]) -> bool:
     strides = first.stride()[:-1]
     return (all(s.data_ptr() % VECTOR_BYTES == 0 for s in samples)
             and all(st * size % VECTOR_BYTES == 0 for st in strides))
+
+
+def vector_block_loads(blocks: list[torch.Tensor]) -> bool:
+    """Whether X4 may read these (contiguous) codeblocks in 16-byte chunks:
+    every component's first word falls on a multiple of VECTOR_BYTES (a
+    frame's codeblocks are 4096 words apart). Otherwise (an offset view)
+    the same kernel reads a word at a time; it does so too at a level whose
+    bands are not a multiple of 4 words wide."""
+    return all(b.data_ptr() % VECTOR_BYTES == 0 for b in blocks)
 
 
 def forward(samples: list[torch.Tensor], cfg: CodecConfig, lib=None):
@@ -372,8 +400,9 @@ def reverse(blocks: list[torch.Tensor], cfg: CodecConfig,
     lib = lib or kernels.library()
     with torch.cuda.device(dev):
         rc = lib.picsong_dwt_reverse(
-            *ptrs, batch, nc, ah, aw, cfg.wavelet_levels, int(cfg.is_lossy),
-            offset(cfg), mn, mx, _SAMPLE_TYPES[out.dtype],
+            *ptrs, int(vector_block_loads(blocks)), batch, nc, ah, aw,
+            cfg.wavelet_levels, int(cfg.is_lossy), offset(cfg), mn, mx,
+            _SAMPLE_TYPES[out.dtype],
             ctypes.addressof(consts), scratch.data_ptr(), out.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     REVERSE_LAUNCHES += 1

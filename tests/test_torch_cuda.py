@@ -577,6 +577,26 @@ def test_dwt_forward_on_offset_views(cuda, skip, lossy, bits):
                                                      want[0])
 
 
+@pytest.mark.parametrize("skip", [0, 1, 4])
+@pytest.mark.parametrize("rgb,lossy,wl", [(False, False, 4), (False, True, 5),
+                                          (True, True, 3)])
+def test_dwt_reverse_on_offset_views(cuda, skip, rgb, lossy, wl):
+    """X4 on codeblocks in views whose first word is 16-byte aligned (skip
+    0 and 4 words: 16-byte loads) and in one that is not (the word-load
+    variant) == reverse_plain on the CPU, one launch a call (at wl=5 the
+    deepest bands are 10 words wide: words at every base)."""
+    cfg = _dwt_cfg(192, 320, rgb=rgb, lossy=lossy, wl=wl)
+    blocks, _ = dwt_cuda.forward(_dwt_samples(cfg), cfg)
+    views = [_offset_view(b.to(cuda), skip) for b in blocks]
+    assert dwt_cuda.vector_block_loads(views) == (skip * 4 % 16 == 0)
+    before = dwt_cuda.REVERSE_LAUNCHES
+    back = dwt_cuda.reverse(views, cfg)
+    torch.cuda.synchronize()
+    assert dwt_cuda.REVERSE_LAUNCHES == before + 1
+    for b, w_ in zip(back, dwt_cuda.reverse(blocks, cfg)):
+        assert b.dtype == w_.dtype and torch.equal(b.cpu(), w_)
+
+
 @pytest.mark.parametrize("rgb", [False, True])
 def test_dwt_forward_on_a_frame_stride_off_16_bytes(cuda, rgb):
     """A frame batch whose frames lie 8 bytes further apart than their

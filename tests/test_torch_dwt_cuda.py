@@ -2,8 +2,9 @@
 plain version the kernels are held to, against TPUCodec's device programs
 (`_prep_*` + `_dwt_tile`, `_untile_idwt` + `_finish_*`, on JAX's CPU) and
 the NumPy oracle; the wrapper's checks, entry points and bound; a model of
-X4's tiling with halos, and one of X2's work split (16-byte load windows,
-register strips, staged 16-byte stores), against whole-plane lifting.
+the first kernels' tiling with halos, and one each of X2's and X4's work split
+(16-byte load windows, register strips, staged 16-byte stores), against
+whole-plane lifting.
 
 Tolerances: the integer paths (5/3, RCT) are exact against both. The 9/7
 path is exact against the oracle; TPUCodec's XLA:CPU 9/7 drifts (ROADMAP
@@ -236,6 +237,23 @@ def test_vector_loads_need_16_byte_bases_and_strides(skip, size, strides,
     assert dwt_cuda.vector_loads([planes]) == want
 
 
+@pytest.mark.parametrize("skips,want", [
+    ((0,), True), ((1,), False), ((2,), False), ((4,), True),
+    ((0, 4, 8), True), ((0, 4, 3), False)])
+def test_vector_block_loads_need_16_byte_bases(skips, want):
+    """X4 reads codeblocks in 16-byte chunks only where every component's
+    first word falls on a multiple of 16 bytes: a contiguous view 1-3
+    words into a buffer is read a word at a time."""
+    n = 2 * 64 * 64
+    views = []
+    for skip in skips:
+        buf = torch.zeros(n + 16, dtype=torch.int32)
+        assert buf.data_ptr() % 16 == 0
+        views.append(buf[skip:skip + n].view(2, 64, 64))
+    assert all(v.is_contiguous() for v in views)
+    assert dwt_cuda.vector_block_loads(views) == want
+
+
 def test_entry_points_are_bound():
     """The C entry points of csrc/dwt_forward.cu and dwt_reverse.cu are
     declared for ctypes with as many arguments as the sources take."""
@@ -263,7 +281,55 @@ def test_bound_counts_the_bytes():
     assert ms == pytest.approx(0.0235, abs=1e-4)
 
 
-# -- a model of X4's tiling (X2's before it was lifted in registers) --------
+# -- the kernels' division by a constant (csrc/dwt_common.cuh div_rn) --------
+
+def _fma32(a, b, c):
+    """fma(a, b, c) of float32 tensors rounded once to float32: the float64
+    product is exact, the sum rounded to odd rounds once when cast."""
+    return dwt_cuda._add_round_to_odd(a.double() * b.double(),
+                                      c.double()).float()
+
+
+def _div_rn(x, b):
+    """div_rn(x, b, reciprocal(b)) on a float32 tensor x."""
+    b = torch.tensor(b, dtype=torch.float32)
+    y = torch.tensor(dwt_cuda.reciprocal(b.item()), dtype=torch.float32)
+    q0 = x * y
+    q1 = _fma32(_fma32(-q0, b, x), y, q0)
+    q = _fma32(_fma32(-q1, b, x), y, q1)
+    return torch.where(x == 0, x, q)
+
+
+@pytest.mark.parametrize("name", ["I97_K1", "I97_K2"])
+def test_div_rn_rounds_every_mantissa_by_k1_and_k2(name):
+    """div_rn == x / b rounded once for every float32 mantissa in [1, 2),
+    so for every normal x whose quotient and remainders stay normal
+    (scaling x by 2^k scales each step exactly); a zero keeps its sign."""
+    b = float(getattr(spec, name))
+    bits = torch.arange(1 << 23, dtype=torch.int32) | 0x3F800000
+    x = bits.view(torch.float32)
+    for sx in (x, -x * 2.0 ** 37, x * 2.0 ** -41):
+        assert torch.equal(_div_rn(sx, b), sx / b)
+    zeros = torch.tensor([0.0, -0.0])
+    got = _div_rn(zeros, b)
+    assert torch.equal(torch.signbit(got), torch.signbit(zeros))
+
+
+def test_div_rn_rounds_by_the_gains_and_qs():
+    """The dequantization's divisors: every gain of spec.WAVELET_QSTEPS and
+    qs in (0.5, 0.7, 1, 3), 2^18 random x each with exponents -40 .. 40."""
+    rng = np.random.default_rng(7)
+    divisors = sorted({float(g) for g in spec.WAVELET_QSTEPS.ravel()}
+                      | {float(np.float32(q)) for q in (0.5, 0.7, 1.0, 3.0)})
+    for b in divisors:
+        x = torch.from_numpy((rng.uniform(-2, 2, 1 << 18)
+                              * 2.0 ** rng.integers(-40, 41, 1 << 18))
+                             .astype(np.float32))
+        assert torch.equal(_div_rn(x, b), x / b), b
+
+
+# -- a model of the first X2/X4 tiling (a 64x64 tile with its halo lifted a
+# step at a time in shared memory), whose arithmetic the strips keep -------
 
 def _step(t, vert, par, lines, g0, n, f):
     """csrc/dwt_common.cuh lift_step on a numpy tile: positions of parity
@@ -410,15 +476,15 @@ def _x2_steps(lossy, scale_odd):
     return steps
 
 
-def _x2_lift_strips(v, g0, n, lossy, scale_odd):
-    """lift_regs on register strips v (..., N), the strip's first position
-    at plane index g0 (...): the edge rule's selects only in strips with
-    g0 <= 0 or g0 + N >= n (the kernel's kEdge variant), the others
-    lifted without them, as the kernel does."""
+def _lift_strips(v, g0, n, steps):
+    """lift_regs on register strips v (..., N) through `steps`, the strip's
+    first position at plane index g0 (...): the edge rule's selects only
+    in strips with g0 <= 0 or g0 + N >= n (the kernel's kEdge variant),
+    the others lifted without them, as the kernels do."""
     size = v.shape[-1]
     edge = (g0 <= 0) | (g0 + size >= n)
     lo, hi = -g0, n - 1 - g0
-    for par, f in _x2_steps(lossy, scale_odd):
+    for par, f in steps:
         for i in range(par, size, 2):
             a = v[..., i - 1 if i > 0 else i + 1]
             b = v[..., i + 1 if i + 1 < size else i - 1]
@@ -473,7 +539,7 @@ def _model_x2_level(plane, lossy, kbytes, vec):
     hh), unquantized (HL, HH times K1 as the store does), every band
     position written exactly once."""
     h, w = plane.shape
-    tile, strip = dwt_cuda.TILE, dwt_cuda.X2_STRIP
+    tile, strip = dwt_cuda.TILE, dwt_cuda.STRIP
     pad, halo = dwt_cuda.X2_PAD, dwt_cuda.HALO[lossy]
     size = strip + 2 * halo
     y0 = np.arange(0, h, tile)
@@ -487,7 +553,8 @@ def _model_x2_level(plane, lossy, kbytes, vec):
         live = g0 + halo < h
         first = pad - halo + strip * s_
         v = a[:, :, first:first + size][..., cols].transpose(0, 1, 3, 2)
-        v = _x2_lift_strips(v.copy(), g0[:, None, None], h, lossy, True)
+        v = _lift_strips(v.copy(), g0[:, None, None], h,
+                         _x2_steps(lossy, True))
         out = v[..., halo:halo + strip].transpose(0, 1, 3, 2)
         rows_b = b[:, :, strip * s_:strip * (s_ + 1)]       # a view
         rows_b[..., cols] = np.where(live[:, None, None, None], out,
@@ -499,8 +566,8 @@ def _model_x2_level(plane, lossy, kbytes, vec):
     for k in range(tile // strip):
         g0 = x0 + strip * k - halo
         first = pad - halo + strip * k
-        v = _x2_lift_strips(b[..., first:first + size].copy(),
-                            g0[None, :, None], w, lossy, False)
+        v = _lift_strips(b[..., first:first + size].copy(),
+                         g0[None, :, None], w, _x2_steps(lossy, False))
         lo_hi = (v[..., halo:halo + strip:2], v[..., halo + 1:halo + strip:2])
         for yl in range(tile // 2):
             for dy in (0, 1):
@@ -556,3 +623,159 @@ def test_x2_model_equals_whole_plane_lifting(h, w, levels, kbytes, vec,
         for g, w_ in zip(got, want):
             assert np.array_equal(g, w_.numpy()), f"level {level}"
         cur = np.ascontiguousarray(got[0])
+
+
+# -- a model of X4's work split (csrc/dwt_reverse.cu) ------------------------
+
+def _x4_steps(lossy, scale_odd):
+    """dwt_common.cuh lift_reverse_regs: (parity, f) per step."""
+    al, be, ga, de, k1, k2 = _f32(spec.I97_ALPHA, spec.I97_BETA,
+                                  spec.I97_GAMMA, spec.I97_DELTA, spec.I97_K1,
+                                  spec.I97_K2)
+    if not lossy:
+        return [(0, lambda x, a, b: x - ((a + b + 2) >> 2)),
+                (1, lambda x, a, b: x + ((a + b) >> 1))]
+    return ([(1, lambda x, a, b: x / k1)] if scale_odd else []) + [
+        (0, lambda x, a, b: x / k2 - (a + b) * de),
+        (1, lambda x, a, b: x - (a + b) * ga),
+        (0, lambda x, a, b: x - (a + b) * be),
+        (1, lambda x, a, b: x - (a + b) * al)]
+
+
+def _x4_stage(bands, y0, x0, halo, vec, lossy):
+    """X4's load into S (tiles_y, tiles_x, rows, 2, X4_STAGE_COLS): row r
+    of a tile with its halo (plane row y0 - halo + r) holds band (r & 1,
+    dx)'s row y0 / 2 - halo / 2 + r // 2, its columns from x0 / 2 -
+    X4_LEAD in chunks of 4 words, staged from 2 before the tile's band
+    columns; a vector chunk is in the band whole or not at all, a scalar
+    one a word at a time; 0 outside the band; 9/7's H band divided by K1.
+    Every staged column is written exactly once."""
+    h2, w2 = bands[0].shape
+    rows = dwt_cuda.TILE + 2 * halo
+    cols, lead = dwt_cuda.X4_STAGE_COLS, dwt_cuda.X4_LEAD
+    pad = 2 * dwt_cuda.TILE
+    k1 = np.float32(spec.I97_K1)
+    stage = np.zeros((len(y0), len(x0), rows, 2, cols), bands[0].dtype)
+    count = np.zeros(stage.shape[2:], int)
+    r = np.arange(rows)
+    y = y0[:, None] // 2 - halo // 2 + r[None, :] // 2          # (ty, rows)
+    row_in = (y >= 0) & (y < h2)
+    for dx in (0, 1):
+        for dy in (0, 1):
+            padded = np.zeros((h2 + 2 * pad, w2 + 2 * pad), bands[0].dtype)
+            padded[pad:pad + h2, pad:pad + w2] = bands[2 * dy + dx]
+            if lossy and dx:
+                padded = padded / k1
+            mine = (r % 2) == dy
+            for q in range((dwt_cuda.TILE // 2 + 2 * lead) // 4):
+                xs = x0 // 2 - lead + 4 * q                       # (tx,)
+                if vec:
+                    assert np.all((xs + 4 <= w2) | (xs >= w2))    # whole
+                for e in range(4):
+                    j = 4 * q + e - (lead - 2)
+                    if not 0 <= j < cols:
+                        continue
+                    x = xs + e
+                    col_in = ((xs >= 0) & (xs < w2)) if vec else \
+                        ((x >= 0) & (x < w2))
+                    vals = padded[(y + pad)[:, None, :],
+                                  (x + pad)[None, :, None]]   # (ty, tx, rows)
+                    keep = row_in[:, None, :] & col_in[None, :, None]
+                    stage[:, :, mine, dx, j] = np.where(
+                        keep, vals, 0)[:, :, mine]
+                    count[mine, dx, j] += 1
+    assert np.all(count == 1)
+    return stage
+
+
+def _model_x4_level(ll, hl, lh, hh, lossy, vec):
+    """One level of csrc/dwt_reverse.cu before its finish on numpy bands
+    -> the plane: the staged bands, the horizontal 16-column strips of
+    every tile row with its halo (interleaved in plane order, lifted with
+    the edge rule), the vertical 16-row strips of every tile column, the
+    copy-out in chunks of 4 values (16-byte stores where the plane's width
+    is a multiple of 4, else a value at a time), every position written
+    exactly once. Rows the horizontal pass skips hold NaN (9/7) or a
+    sentinel (5/3), so reading one would show."""
+    h, w = 2 * ll.shape[0], 2 * ll.shape[1]
+    tile, strip, halo = dwt_cuda.TILE, dwt_cuda.STRIP, dwt_cuda.HALO[lossy]
+    size = strip + 2 * halo
+    rows = tile + 2 * halo
+    y0 = np.arange(0, h, tile)
+    x0 = np.arange(0, w, tile)
+    stage = _x4_stage((ll, hl, lh, hh), y0, x0, halo, vec, lossy)
+    junk = np.nan if lossy else 0x3fff0000
+    b = np.full((len(y0), len(x0), rows, tile), junk, ll.dtype)
+    # horizontal: strip s of tile row r, plane columns g0 .. g0 + size
+    gy = y0[:, None] - halo + np.arange(rows)[None, :]           # (ty, rows)
+    i = np.arange(size)
+    for s_ in range(tile // strip):
+        g0 = x0 + strip * s_ - halo                              # (tx,)
+        first = strip // 2 * s_ + 2 - halo // 2
+        v = stage[:, :, :, i & 1, first + (i >> 1)]      # (ty, tx, rows, N)
+        v = _lift_strips(v.copy(), g0[None, :, None], w,
+                         _x4_steps(lossy, False))
+        live = (((gy >= 0) & (gy < h))[:, None, :]
+                & (g0 + halo < w)[None, :, None])
+        b[..., strip * s_:strip * (s_ + 1)] = np.where(
+            live[..., None], v[..., halo:halo + strip],
+            b[..., strip * s_:strip * (s_ + 1)])
+    # vertical: strip s of tile column c, plane rows g0 .. g0 + size
+    t = np.zeros((len(y0), len(x0), tile, tile), ll.dtype)
+    for s_ in range(tile // strip):
+        g0 = y0 + strip * s_ - halo                              # (ty,)
+        v = b[:, :, strip * s_:strip * s_ + size].transpose(0, 1, 3, 2)
+        v = _lift_strips(v.copy(), g0[:, None, None], h,
+                         _x4_steps(lossy, True))
+        t[:, :, strip * s_:strip * (s_ + 1)] = v[..., halo:halo + strip] \
+            .transpose(0, 1, 3, 2)
+    # the copy-out
+    out = np.zeros((h, w), ll.dtype)
+    count = np.zeros((h, w), int)
+    for ty, yy in enumerate(y0):
+        for tx, xx in enumerate(x0):
+            for r in range(min(tile, h - yy)):
+                for x in range(xx, min(xx + tile, w), 4):
+                    n = 4 if w % 4 == 0 else min(4, w - x)
+                    if w % 4 == 0:                  # a whole 16-byte chunk
+                        assert x + 4 <= w
+                    out[yy + r, x:x + n] = t[ty, tx, r, x - xx:x - xx + n]
+                    count[yy + r, x:x + n] += 1
+    assert np.all(count == 1)
+    return out
+
+
+@pytest.mark.parametrize("h,w,levels,vec", [
+    (2048, 2048, 5, True),              # the main path
+    (1088, 1920, 5, True),              # the video frame
+    (512, 512, 5, False),               # codeblocks off 16 bytes: words
+    (128, 192, 6, True),                # 3- and 6-wide bands (words)
+])
+@pytest.mark.parametrize("lossy", [False, True])
+def test_x4_model_equals_whole_plane_lifting(h, w, levels, vec, lossy):
+    """Every level of X4's work split (band rows staged from chunks of 4
+    words, vector where the codeblocks' base allows and the bands are a
+    multiple of 4 wide, else a word at a time) equals the whole-plane
+    inverse lifting of transform/dwt.py on the forward lifting's bands."""
+    rng = np.random.default_rng(h + levels + int(lossy))
+    if lossy:
+        cur = (rng.normal(0, 60, (h, w))
+               * 2.0 ** rng.integers(-4, 5, (h, w))).astype(np.float32)
+    else:
+        cur = rng.integers(-40000, 40000, (h, w)).astype(np.int32)
+    bands = []
+    for level in range(levels):
+        got = dwt.lift_horizontal(*dwt.lift_vertical(
+            torch.from_numpy(cur), lossy), lossy)
+        bands.append([g.numpy() for g in got])
+        cur = np.ascontiguousarray(bands[-1][0])
+    ll = bands[-1][0]
+    for level in range(levels - 1, -1, -1):
+        _, hl, lh, hh = bands[level]
+        w2 = ll.shape[1]
+        got = _model_x4_level(ll, hl, lh, hh, lossy, vec and w2 % 4 == 0)
+        want = dwt.unlift_vertical(*dwt.unlift_horizontal(
+            *(torch.from_numpy(np.ascontiguousarray(b))
+              for b in (ll, hl, lh, hh)), lossy), lossy).numpy()
+        assert np.array_equal(got, want), f"level {level}"
+        ll = got
