@@ -28,9 +28,11 @@ or of the JAX package `picsong_tpu` is imported:
   `pack_check`): the kernels' codestream (with a header, with the filler,
   with the payload given) and their unpack of it byte-equal to the plain
   version on random and edge batches (N = 0 and 1, all empty, all raw
-  copies, mixed sizes, N not a multiple of the kernels' chunks), on the
-  main path's streams, the 1080p video batch's and 8192^2's, timed at
-  those three (kernels, their device time in a CUDA graph, plain, bound);
+  copies, mixed sizes, N not a multiple of the kernels' tile, payloads
+  starting at every residue of a 16-byte chunk; the unpack also from
+  views 1..7 shorts past a 16-byte boundary), on the main path's
+  streams, the 1080p video batch's and 8192^2's, timed at those three
+  (kernels, their device time in a CUDA graph, plain, bound);
 - the two probe kernels against their plain versions on the probes' own
   and on edge inputs, then the probe entry points;
 - gray lossy 9/7, 2048x2048 at 3 levels, qs 1 (BASELINE config 2),
@@ -415,12 +417,15 @@ def pack_results() -> dict:
 
 
 def pack_check(tag: str, label: str, streams, sizes, header, res: dict,
-               timed: bool = False) -> None:
+               timed: bool = False, views: bool = False) -> None:
     """X3 (`assembly/pack.py`) on one batch of streams on the card: the
     kernels' codestream (with `header`, with the filler, with the payload
     given) and their unpack of it (streams and sizes) byte-equal to the
     plain version on the same card tensors; the unpack equal to the
-    streams and sizes packed. With `timed`: the kernels' time over
+    streams and sizes packed. With `views`, also the unpack of the
+    codestream held in views 1..7 shorts past a 16-byte boundary (as
+    `join_frames` and the sharded uploads may hand it over). With
+    `timed`: the kernels' time over
     KERNEL_BATCH back-to-back calls (payload given, so no read) and their
     device time in a CUDA graph (`kernel_ab.graph_ms`), the plain version's
     (median of 3), the pack with its one read on the host clock, and the
@@ -452,6 +457,20 @@ def pack_check(tag: str, label: str, streams, sizes, header, res: dict,
     _require(e == 0, f"X3 {label}: unpack kernel == plain, max abs err {e}")
     _require(torch.equal(back[0], streams) and torch.equal(back[1], sizes),
              f"X3 {label}: unpack(pack(streams)) == streams, sizes")
+    for k in range(1, 8) if views else ():
+        held = torch.empty(got.numel() + 8, dtype=torch.int16,
+                           device=got.device)[k:k + got.numel()]
+        held.copy_(got)
+        _require(held.data_ptr() % 16 == 2 * k, f"X3 {label}: a view {k} "
+                 "shorts past a 16-byte boundary")
+        back = pack.unpack_streams(held, n, payload)
+        want = pack.unpack_streams_plain(held, n, payload)
+        torch.cuda.synchronize()
+        e = max(diff(a, b) for a, b in zip(back, want))
+        res["err"]["unpack"] = max(res["err"]["unpack"], e)
+        _require(e == 0 and torch.equal(back[0], streams),
+                 f"X3 {label}: unpack of a view {k} shorts past a 16-byte "
+                 f"boundary == plain, max abs err {e}")
     res["cases"] += 1
     if not timed:
         return
@@ -490,23 +509,28 @@ def pack_check(tag: str, label: str, streams, sizes, header, res: dict,
 def pack_phase(dev, tag: str, res: dict) -> None:
     """X3 against its plain version on random and edge batches: N = 0 and
     1, all empty blocks, all raw copies (16-bit words up to 0xFFFF), mixed
-    sizes with both ends, a batch that is not a multiple of the scan's or
-    the copy's chunk; the main path, the video batch and 8192^2 are
-    checked where their streams are made (phases 5, 14, 13)."""
+    sizes with both ends, a batch that is not a multiple of the tile of 8
+    codeblocks, the alignments batch (`goldens.aligned_counts`); the mixed
+    and alignments batches also unpacked from views at every 2-byte offset
+    mod 16; the main path, the video batch and 8192^2 are checked where
+    their streams are made (phases 5, 14, 13)."""
     import numpy as np
     import torch
 
     from picsong_tpu_torch.core.header import CodecConfig, pack_header
+    from picsong_tpu_torch.tools import goldens
 
     started = time.perf_counter()
     header = pack_header(CodecConfig(width=64, height=64))
     for seed, (kind, n) in enumerate((("empty", 0), ("mixed", 1),
                                       ("empty", 9), ("raw", 5),
-                                      ("mixed", 1500), ("mixed", 4097))):
+                                      ("mixed", 1500), ("mixed", 4097),
+                                      ("alignments", 304))):
         rng = np.random.default_rng(40 + seed)
         sizes = {"empty": np.ones(n), "raw": np.full(n, 4096),
-                 "mixed": rng.integers(1, 4097, size=n)}[kind].astype(
-                     np.int32)
+                 "mixed": rng.integers(1, 4097, size=n),
+                 "alignments": np.asarray(goldens.aligned_counts()) + 1,
+                 }[kind].astype(np.int32)
         if kind == "mixed":
             sizes[:3] = (1, 4096, 2)[:n]
         streams = np.full((n, 4096), -1, dtype=np.int32)
@@ -516,7 +540,8 @@ def pack_phase(dev, tag: str, res: dict) -> None:
         streams[:, 0] = np.where(sizes == 1, 32,
                                  rng.integers(0, 16, size=n))
         pack_check(tag, f"{kind} N={n}", torch.from_numpy(streams).to(dev),
-                   torch.from_numpy(sizes).to(dev), header, res)
+                   torch.from_numpy(sizes).to(dev), header, res,
+                   views=kind in ("mixed", "alignments"))
     print(f"{tag} X3 pack phase: {res['cases']} random and edge batches "
           f"byte-equal to the plain version both ways (max abs err pack "
           f"{res['err']['pack']}, unpack {res['err']['unpack']}); "

@@ -54,10 +54,10 @@ _SIGNATURES = {
     # b0, b1, b2, vec, batch, comps, h, w, levels, lossy, offset, lo, hi,
     # type, consts, scratch, out, stream
     "picsong_dwt_reverse": [_P, _P, _P, *[_I] * 11, _P, _P, _P, _P],
-    # streams, sizes, n, header (host, or null), capacity, offsets, out,
+    # streams, sizes, n, header (host, or null), capacity, status, out,
     # stream
     "picsong_pack": [_P, _P, _I, _P, _L, _P, _P, _P],
-    # code, n, payload, offsets, streams, sizes, stream
+    # code, n, payload, status, streams, sizes, stream
     "picsong_unpack": [_P, _I, _L, _P, _P, _P, _P],
 }
 

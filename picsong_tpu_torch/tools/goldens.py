@@ -12,6 +12,7 @@ from NumPy's PCG64), so it gives the same samples on every machine; its
 own digests come first, so that a different input shows as "input
 differs" and not as a codestream fault. The quality tools' images are
 not integer arithmetic; their digests are checked the same way.
+`aligned_counts` gives the codeblock sizes of X3's alignments batch.
 
     python -m picsong_tpu_torch.tools.goldens   # print the image digests
 """
@@ -343,6 +344,22 @@ def make_frame(height: int, width: int, index: int,
     (seed + index); integer arithmetic only."""
     img = _pattern(height, width, seed + index, 3 * index, 2 * index)
     return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def aligned_counts() -> list[int]:
+    """Payload counts of 304 codeblocks (their payload starts at short
+    9 + 2 * 304 of the codestream) under which the first payload short of
+    a block with each of the counts 0-17 and 4095 lies at every residue
+    mod 8, each 2-byte place of a 16-byte chunk: before each such block, a
+    lead block sized to put it there. X3's alignments batch."""
+    n = 2 * 8 * 19
+    body, off, counts = 9 + 2 * n, 0, []
+    for c in (*range(18), 4095):
+        for r in range(8):
+            lead = (r - body - off) % 8
+            counts += [lead, c]
+            off += lead + c
+    return counts
 
 
 def image_key(size: int, seed: int = 3, width: int | None = None,

@@ -5,6 +5,7 @@ checkout's, on one card, in one process.
     python -m picsong_tpu_torch.tools.kernel_ab --other DIR --sweep
     python -m picsong_tpu_torch.tools.kernel_ab --other DIR --layers
     python -m picsong_tpu_torch.tools.kernel_ab [--other DIR] --split
+    python -m picsong_tpu_torch.tools.kernel_ab --other DIR --pack
 
 DIR is the root of another checkout (a `git archive` of the parent
 commit, say); its `picsong_tpu_torch/csrc` is built into `DIR/build/ab`.
@@ -42,6 +43,23 @@ planes, at the SPLIT_SHAPES (2048^2, the (8, 1088, 1920) video batch,
 finish), level k the wl=k+1 time less the wl=k time. X4's codeblocks
 come from the tree's `forward` at each wl, outside the graph. One JSON
 line per (tree, kernel, shape, wavelet).
+
+`--pack` instead times X3, the codestream pack and unpack
+(`assembly/pack.py` `pack_streams` / `unpack_streams`), this tree's and
+the other's, each through its own package (imported as for `--layers`),
+in the same turns, on the streams K1 makes at the PACK_SHAPES (the main
+path's 2048^2 plane, the 1080p video batch of 8 `goldens.make_frame`
+frames, 8192^2; lossless 5/3 wl=5, neutral LUT, as chip_smoke.py makes
+them), the payload given: the device time (`graph_ms`), the call time
+over 20 back-to-back calls (CUDA events, medians of 10) and the bound
+(`pack.bound_ms`); both trees' codestreams (with the header, and without
+`payload=`) and unpacks must be byte-equal, and the unpack the streams
+and sizes. One JSON line per (shape, direction). Then the wrapper split:
+the host time of each part of one call of this tree's `pack_streams` and
+`unpack_streams` at 2048^2 (checks, allocations, the device context, the
+stream, the ctypes launch, the error check; each part run alone
+`SPLIT_REPS` times back to back, median of 5), beside the whole call's
+and the other tree's whole call; one JSON line per part.
 """
 
 from __future__ import annotations
@@ -68,6 +86,10 @@ LAYER_TURNS = ("other", "this", "this", "other") * 4
 SPLIT_SHAPES = (("2048^2", 2048, 2048, 0), ("(8, 1088, 1920)", 1088, 1920, 8),
                 ("8192^2", 8192, 8192, 0))
 SPLIT_LEVELS = 5
+# X3's shapes: (label, height, width, frames (0: an image))
+PACK_SHAPES = (("2048^2", 2048, 2048, 0), ("(8, 1088, 1920)", 1080, 1920, 8),
+               ("8192^2", 8192, 8192, 0))
+SPLIT_REPS = 200
 
 
 def _times(fn, per: int = BATCH) -> list[float]:
@@ -328,6 +350,223 @@ def _layers(other_root: str, card: str) -> int:
     return 0
 
 
+def pack_inputs(h: int, w: int, frames: int, dev):
+    """K1's (streams, sizes) of a PACK_SHAPES entry, lossless 5/3 wl=5 with
+    the neutral LUT: a gray `goldens.make_image` plane, or a batch of
+    `frames` gray `goldens.make_frame` frames (seed 5, as chip_smoke.py's
+    video phase) coded as one launch; and the image's header."""
+    import numpy as np
+    import torch
+
+    from ..core.header import CodecConfig, pack_header
+    from ..core.image_io import mirror_pad
+    from ..engine import cli
+    from ..engine.batch import BatchCodec
+    from ..engine.pipeline import TorchCodec
+    from ..entropy import bpc, bpc_cuda
+    from ..transform import dwt_cuda
+    from . import goldens
+
+    cfg = CodecConfig(width=w, height=h, wavelet_levels=5)
+    luts, params = cli._load_luts("neutral", 5, 2, 0.0)
+    if frames:
+        bc = BatchCodec(cfg, luts, params, frames, dev)
+        planes = np.stack([mirror_pad(goldens.make_frame(h, w, j, 5), bc.aw,
+                                      bc.ah) for j in range(frames)])
+        blocks, mx = bc.prep_batch(torch.from_numpy(planes).to(dev))
+        blocks, args, kw = blocks[0], bc._bpc_args(0), bc.codec._bpc_kw
+    else:
+        codec = TorchCodec(cfg, luts, params, dev)
+        img = torch.from_numpy(goldens.make_image(h, width=w)).to(dev)
+        (blocks,), mx = dwt_cuda.forward([img], cfg)
+        args, kw = codec._bpc_args(), codec._bpc_kw
+    streams, sizes = bpc_cuda.encode_blocks(
+        blocks, *args, **kw, n_planes=bpc.planes_for_magnitude(int(mx)))
+    return streams, sizes, pack_header(cfg)
+
+
+def _host_us(fn, reps: int = SPLIT_REPS) -> float:
+    """Host microseconds of one call of `fn`: `reps` calls back to back on
+    the host clock, median of 5, the card drained between."""
+    import torch
+    fn()
+    out = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        out.append((time.perf_counter() - t) / reps * 1e6)
+    torch.cuda.synchronize()
+    return statistics.median(out)
+
+
+def wrapper_split(pack, kernels, streams, sizes, header, card,
+                  other=None) -> None:
+    """The host time of each part of one `pack_streams` and one
+    `unpack_streams` call of the tree module `pack` (payload given), each
+    part as the wrapper runs it, and of the whole call (also of the other
+    tree's module `other`'s, where given)."""
+    import ctypes
+
+    import numpy as np
+    import torch
+
+    lib, dev = kernels.library(), streams.device
+    n = streams.shape[0]
+    payload = int(sizes.sum()) - n
+    code = pack.pack_streams(streams, sizes, header, payload=payload)
+    out = torch.empty(pack.stream_length(n, payload), dtype=torch.int16,
+                      device=dev)
+    rows = torch.empty((n, 4096), dtype=torch.int32, device=dev)
+    z = torch.empty(n, dtype=torch.int32, device=dev)
+    status = torch.zeros(pack.status_words(n), dtype=torch.int64, device=dev)
+    hdr = (ctypes.c_uint16 * pack.HEADER_SHORTS)(*header.tolist())
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def context():
+        with torch.cuda.device(dev):
+            pass
+
+    def on():
+        ctx, raw = pack._on(dev)
+        with ctx:
+            return raw
+
+    def header_arg():
+        h = np.ascontiguousarray(header, dtype=np.uint16)
+        return (ctypes.c_uint16 * pack.HEADER_SHORTS)(*h.tolist())
+
+    def unpack_checks():
+        pack._check_payload(payload)
+        return (code.dtype != torch.int16 or code.dim() != 1
+                or not code.is_contiguous()
+                or code.numel() < pack.stream_length(n, payload))
+
+    common = {
+        "torch.zeros (status)": lambda: torch.zeros(
+            pack.status_words(n), dtype=torch.int64, device=dev),
+        "torch.empty (status, for the zeroing's share)": lambda: torch.empty(
+            pack.status_words(n), dtype=torch.int64, device=dev),
+        "with torch.cuda.device(dev)": context,
+        "torch.cuda.current_device()": torch.cuda.current_device,
+        "torch.cuda.current_stream(dev).cuda_stream":
+            lambda: torch.cuda.current_stream(dev).cuda_stream,
+        # what the wrapper runs in place of the two above
+        "pack._on(dev) (context when not current, raw stream)": on,
+    }
+    parts = {
+        "pack": {
+            "_check x2 + payload": lambda: (
+                pack._check(streams, "streams", (n, 4096)),
+                pack._check(sizes, "sizes", (n,)),
+                pack._check_payload(payload)),
+            "_device_type": lambda: pack._device_type([streams, sizes], "X3"),
+            "_check_aligned": lambda: pack._check_aligned(streams, "streams"),
+            "header to a ctypes array": header_arg,
+            "torch.empty (codestream)": lambda: torch.empty(
+                pack.stream_length(n, payload), dtype=torch.int16,
+                device=dev),
+            **common,
+            "ctypes launch": lambda: lib.picsong_pack(
+                streams.data_ptr(), sizes.data_ptr(), n,
+                ctypes.addressof(hdr), payload, status.data_ptr(),
+                out.data_ptr(), stream),
+            "kernels.check": lambda: kernels.check(lib, 0, "pack launch"),
+            "whole call": lambda: pack.pack_streams(streams, sizes, header,
+                                                    payload=payload),
+            "whole call, the other tree": other and (
+                lambda: other.pack_streams(streams, sizes, header,
+                                           payload=payload)),
+        },
+        "unpack": {
+            "checks": unpack_checks,
+            "_device_type": lambda: pack._device_type([code], "X3"),
+            "torch.empty (rows)": lambda: torch.empty(
+                (n, 4096), dtype=torch.int32, device=dev),
+            "torch.empty (sizes)": lambda: torch.empty(
+                n, dtype=torch.int32, device=dev),
+            **common,
+            "ctypes launch": lambda: lib.picsong_unpack(
+                code.data_ptr(), n, payload, status.data_ptr(),
+                rows.data_ptr(), z.data_ptr(), stream),
+            "kernels.check": lambda: kernels.check(lib, 0, "unpack launch"),
+            "whole call": lambda: pack.unpack_streams(code, n, payload),
+            "whole call, the other tree": other and (
+                lambda: other.unpack_streams(code, n, payload)),
+        },
+    }
+    for d, fns in parts.items():
+        for part, fn in fns.items():
+            if fn is None:
+                continue
+            print(json.dumps({"split": d, "part": part, "us": _host_us(fn),
+                              "codeblocks": n, "card": card}), flush=True)
+
+
+def _pack(other_root: str, card: str) -> int:
+    """Both trees' X3 at the PACK_SHAPES, in turns; then this tree's
+    wrapper split."""
+    import torch
+
+    from .. import kernels
+    from ..assembly import pack
+
+    _other_package(other_root)
+    packs = {"other": importlib.import_module("ab_other.assembly.pack"),
+             "this": pack}
+    dev = torch.device("cuda")
+    for label, h, w, frames in PACK_SHAPES:
+        streams, sizes, header = pack_inputs(h, w, frames, dev)
+        n = streams.shape[0]
+        payload = int(sizes.sum()) - n
+        got = {t: m.pack_streams(streams, sizes, header)
+               for t, m in packs.items()}
+        code = got["this"]
+        back = {t: m.unpack_streams(code, n, payload)
+                for t, m in packs.items()}
+        filler = {t: m.pack_streams(streams, sizes, None, payload=payload)
+                  for t, m in packs.items()}
+        if not (torch.equal(got["this"], got["other"])
+                and torch.equal(filler["this"], filler["other"])
+                and all(torch.equal(a, b) for a, b in zip(back["this"],
+                                                          back["other"]))
+                and torch.equal(back["this"][0], streams)
+                and torch.equal(back["this"][1], sizes)):
+            print(f"kernel_ab: X3 at {label}: the trees disagree",
+                  file=sys.stderr)
+            return 1
+        bound = pack.bound_ms(n, payload)
+        for d in ("pack", "unpack"):
+            def run(m, d=d):
+                if d == "pack":
+                    return lambda: m.pack_streams(streams, sizes, header,
+                                                  payload=payload)
+                return lambda: m.unpack_streams(code, n, payload)
+            device = {"other": [], "this": []}
+            call = {"other": [], "this": []}
+            for t in ("other", "this", "this", "other"):
+                device[t].append(graph_ms(run(packs[t])))
+                call[t] += _times(run(packs[t]))
+            ms = {t: statistics.median(v) for t, v in device.items()}
+            print(json.dumps({
+                "shape": label, "codeblocks": n, "payload": payload,
+                "kernel": d, "device_ms": ms["this"],
+                "other_device_ms": ms["other"],
+                "ms": statistics.median(call["this"]),
+                "other_ms": statistics.median(call["other"]),
+                "bound_ms": bound[d][0], "bound_by": bound[d][1],
+                "share_of_bound": bound[d][0] / ms["this"],
+                "other_share_of_bound": bound[d][0] / ms["other"],
+                "card": card}), flush=True)
+        if label == PACK_SHAPES[0][0]:
+            split_inputs = (streams, sizes, header)
+        del streams, sizes, got, code, back, filler
+        torch.cuda.empty_cache()
+    wrapper_split(pack, kernels, *split_inputs, card, packs["other"])
+    return 0
+
+
 def _print_ab(config, layer, clock, samples, card) -> None:
     print(json.dumps({
         "config": config, "layer": layer, "clock": clock,
@@ -345,6 +584,7 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--sweep", action="store_true")
     ap.add_argument("--layers", action="store_true")
     ap.add_argument("--split", action="store_true")
+    ap.add_argument("--pack", action="store_true")
     args = ap.parse_args(argv)
     if not (args.split or args.other):
         ap.error("--other is required unless --split")
@@ -371,6 +611,8 @@ def main(argv: list[str] | None = None) -> int:
         return _split(args.other and os.path.abspath(args.other), card)
     if args.layers:
         return _layers(os.path.abspath(args.other), card)
+    if args.pack:
+        return _pack(os.path.abspath(args.other), card)
     other_dir = os.path.join(os.path.abspath(args.other), "build", "ab")
     other_lib, _ = kernels.build(
         build_dir=other_dir,

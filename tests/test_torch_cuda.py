@@ -698,6 +698,53 @@ def test_pack_kernels_match_plain(cuda, kind, n):
     assert torch.equal(z_back.cpu(), sizes)
 
 
+def _aligned_batch():
+    """Streams whose blocks with counts 0-17 and 4095 each start their
+    payload at every residue mod 8 of the 16-byte chunks
+    (`goldens.aligned_counts`, 304 blocks)."""
+    sizes = np.asarray(goldens.aligned_counts(), dtype=np.int32) + 1
+    n = sizes.size
+    rng = np.random.default_rng(12)
+    streams = np.full((n, 4096), -1, dtype=np.int32)
+    keep = np.arange(4096)[None, :] < sizes[:, None]
+    streams[keep] = rng.integers(0, 1 << 16, size=int(sizes.sum()),
+                                 dtype=np.int32)
+    return torch.from_numpy(streams), torch.from_numpy(sizes)
+
+
+def test_pack_kernels_at_every_alignment(cuda):
+    """Payloads starting at every 2-byte place of a 16-byte chunk, with
+    heads, bodies and tails of every length: the kernels' codestream and
+    unpack == the plain version's."""
+    streams, sizes = _aligned_batch()
+    n = sizes.numel()
+    payload = int(sizes.sum()) - n
+    want = pack.pack_streams_plain(streams, sizes, None)
+    got = pack.pack_streams(streams.to(cuda), sizes.to(cuda), None)
+    assert torch.equal(got.cpu(), want)
+    s_back, z_back = pack.unpack_streams(got, n, payload)
+    assert torch.equal(s_back.cpu(), streams)
+    assert torch.equal(z_back.cpu(), sizes)
+
+
+def test_unpack_kernel_reads_misaligned_views(cuda):
+    """A codestream held in a view 1..7 shorts past a 16-byte boundary
+    (as `join_frames` and the sharded uploads may hand it over) unpacks to
+    the plain version's streams and sizes."""
+    streams, sizes = _aligned_batch()
+    n = sizes.numel()
+    payload = int(sizes.sum()) - n
+    code = pack.pack_streams_plain(streams, sizes, None)
+    for k in range(1, 8):
+        held = torch.empty(code.numel() + 8, dtype=torch.int16,
+                           device=cuda)[k:k + code.numel()]
+        held.copy_(code.to(cuda))
+        assert held.data_ptr() % 16 == 2 * k
+        s_back, z_back = pack.unpack_streams(held, n, payload)
+        assert torch.equal(s_back.cpu(), streams)
+        assert torch.equal(z_back.cpu(), sizes)
+
+
 def test_pack_launch_goes_to_the_current_stream(cuda):
     """Under a non-default current stream the pack and unpack kernels
     launch on that stream, after the work already queued there, with the
@@ -736,3 +783,6 @@ def test_codecs_run_the_pack_kernels(cuda):
         pack.pack_streams(streams.to(cuda).long(), sizes.to(cuda), None)
     with pytest.raises(ValueError, match="several devices"):
         pack.pack_streams(streams.to(cuda), sizes, None)
+    flat = torch.zeros(4 * 4096 + 1, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        pack.pack_streams(flat[1:].view(4, 4096), sizes.to(cuda), None)

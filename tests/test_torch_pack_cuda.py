@@ -2,14 +2,16 @@
 plain version the kernels of `csrc/pack.cu` are held to, against the JAX
 package's device pack (`StagedBPC._pack_dense_impl` /
 `_unpack_dense_impl`, on JAX's CPU); a NumPy model of the kernels' own
-scan (a chunk of blocks a thread, warp shuffles, one warp over the warp
-totals) and relocation (a warp a codeblock, its lanes' words) against the
-plain version; and the wrapper's checks, bound and C binding.
+work split (a tile of codeblocks a CTA, its offsets by a look-back over
+the tiles' status words; a warp a codeblock, its payload staged in
+windows of shorts and moved as 16-byte chunks, 2-byte stores at a
+block's partial ends, unpack's loads rounded out to 16-byte boundaries of
+the allocation) against the plain version; and the wrapper's checks,
+bound and C binding.
 
 Every value is an integer: every comparison is exact (tolerance 0).
 """
 
-import functools
 import os
 import re
 
@@ -24,11 +26,14 @@ from picsong_tpu_torch.assembly import pack
 from picsong_tpu_torch.core.header import CodecConfig, pack_header
 
 WORDS = 4096
-# the kernels' shapes (csrc/pack.cu kScanThreads, kCopyWarps, kUnroll)
-SCAN_THREADS = 1024
-COPY_WARPS = 8
-UNROLL = 4
-
+# the kernels' shapes (csrc/pack.cu kTileBlocks, kStage, kLookBack, kPad,
+# kPackLoads, kUnpackLoads)
+TILE_BLOCKS = pack.TILE_BLOCKS
+STAGE = 1024
+LOOK_BACK = 4
+PAD = 16
+PACK_LOADS = 9
+UNPACK_LOADS = 5
 
 def _sizes(kind: str, n: int, rng) -> np.ndarray:
     """Codeblock sizes: all empty (1), all raw copies (4096), random
@@ -121,99 +126,213 @@ def _hillis_steele(v: np.ndarray) -> np.ndarray:
     return v
 
 
-def model_scan(sizes: np.ndarray) -> np.ndarray:
-    """scan_kernel: thread t sums the counts of its chunk of blocks, each
-    warp scans its 32 thread sums, warp 0 scans the 32 warp totals, and
-    each thread writes the exclusive offsets of its chunk; the last thread
-    writes the total. Returns the N + 1 int64 offsets."""
+AGGREGATE, PREFIX = 1, 2        # the status words' flags
+
+
+def model_scan(sizes: np.ndarray, seed: int = 0) -> np.ndarray:
+    """The kernels' offsets: a tile of TILE_BLOCKS codeblocks a CTA; its
+    warp 0 scans the counts (lanes past the tile hold 0) and publishes the
+    aggregate (tile 0 its inclusive prefix) as its CTA starts, in
+    blockIdx order; then the tiles look back in the order of a random
+    permutation (`seed`), each reading its predecessors' words 32 *
+    LOOK_BACK a round (lane l, read r: the tile l + 32 r before the
+    round's nearest), until it meets a prefix, and publishing its own.
+    Returns the N + 1 int64 offsets, the last the total the last tile
+    writes."""
     n = sizes.size
     counts = np.clip(sizes.astype(np.int64) - 1, 0, WORDS - 1)
-    chunk = -(-n // SCAN_THREADS)
-    begin = np.minimum(np.arange(SCAN_THREADS) * chunk, n)
-    end = np.minimum(begin + chunk, n)
-    sums = np.array([counts[b:e].sum() for b, e in zip(begin, end)],
-                    dtype=np.int64)
-    incl = _hillis_steele(sums.reshape(32, 32))      # warps x lanes
-    warps = _hillis_steele(incl[:, 31])
-    run = (incl - sums.reshape(32, 32)
-           + np.concatenate([[0], warps[:-1]])[:, None]).reshape(-1)
-    offsets = np.full(n + 1, -7, dtype=np.int64)
-    for t in range(SCAN_THREADS):
-        for i in range(begin[t], end[t]):
-            offsets[i] = run[t]
-            run[t] += counts[i]
-    offsets[n] = run[-1]
-    return offsets
-
-
-@functools.lru_cache(maxsize=None)
-def _lane_words(c: int) -> np.ndarray:
-    """The payload words of a block of `c`, in the order pack_kernel's
-    lanes take them: lane l from j = l in steps of 32 * UNROLL, UNROLL
-    words 32 apart each step."""
-    ks = [j + 32 * u for lane in range(32)
-          for j in range(lane, c, 32 * UNROLL) for u in range(UNROLL)]
-    return np.array([k for k in ks if k < c], dtype=np.int64)
-
-
-def model_pack(streams, sizes, header, capacity) -> np.ndarray:
-    """pack_kernel over its grid (max(1, ceil(N / COPY_WARPS)) CTAs of
-    COPY_WARPS warps), into a buffer of a sentinel that no short of the
-    layout holds, so that a short no warp writes shows."""
-    n = sizes.size
-    offsets = model_scan(sizes)
-    body = pack.HEADER_SHORTS + 2 * n
-    out = np.full(body + capacity + 1, 0x12345, dtype=np.int64)
-    for cta in range(max(1, -(-n // COPY_WARPS))):
-        if cta == 0:
-            out[:pack.HEADER_SHORTS] = (0xFFFF if header is None
-                                        else header)
-            out[body + min(offsets[n], capacity)] = 0xFFFF
-        for w in range(COPY_WARPS):
-            i = cta * COPY_WARPS + w
-            if i >= n:
+    tiles = max(1, -(-n // TILE_BLOCKS))
+    lanes = np.zeros((tiles, 32), dtype=np.int64)
+    lanes[:, :TILE_BLOCKS] = np.pad(
+        counts, (0, tiles * TILE_BLOCKS - n)).reshape(tiles, TILE_BLOCKS)
+    incl = _hillis_steele(lanes)
+    aggregate = incl[:, 31]
+    flag = np.full(tiles, AGGREGATE)
+    flag[0] = PREFIX
+    value = aggregate.copy()
+    base = np.zeros(tiles, dtype=np.int64)
+    # distance from the round's nearest tile of lane l's read r: l + 32 r
+    dist = (np.arange(32)[None, :] + 32 * np.arange(LOOK_BACK)[:, None])
+    for t in 1 + np.random.default_rng(seed).permutation(tiles - 1):
+        nearest = t - 1
+        while True:
+            j = nearest - dist
+            f = np.where(j >= 0, flag[np.maximum(j, 0)], PREFIX)
+            v = np.where(j >= 0, value[np.maximum(j, 0)], 0)
+            assert (f != 0).all()          # every predecessor published
+            ballots = (f == PREFIX)        # one ballot a read
+            hit = ballots.any(axis=1)
+            stop = (32 * int(np.argmax(hit))
+                    + int(np.argmax(ballots[np.argmax(hit)]))
+                    if hit.any() else 32 * LOOK_BACK)
+            base[t] += v[dist <= stop].sum()
+            if hit.any():
                 break
-            out[pack.HEADER_SHORTS + 2 * i] = streams[i, 0] & 0xFFFF
-            out[pack.HEADER_SHORTS + 2 * i + 1] = sizes[i] & 0xFFFF
-            off = offsets[i]
-            c = int(max(0, min(offsets[i + 1] - off, capacity - off)))
-            k = _lane_words(c)
-            assert np.array_equal(np.sort(k), np.arange(c))
-            out[body + off + k] = streams[i, 1 + k] & 0xFFFF
+            nearest -= 32 * LOOK_BACK
+        flag[t], value[t] = PREFIX, base[t] + aggregate[t]
+    offsets = (base[:, None] + incl - lanes)[:, :TILE_BLOCKS].reshape(-1)
+    return np.append(offsets[:n], base[-1] + aggregate[-1])
+
+
+SENTINEL = 0x12345              # a value no short of the layout holds
+MODEL_BATCH = 2048              # codeblocks the models stage at once
+
+
+def model_pack(streams, sizes, header, capacity, seed=0) -> np.ndarray:
+    """pack_kernel over its grid, into a buffer of SENTINEL shorts whose
+    base is 16-byte aligned: the header (tile 0), the filler at the total
+    (the last tile), each block's (MSB, size) pair, and its payload a
+    window of STAGE shorts at a time, in turn: the row's 16-byte words 4q..4q+3, q = STAGE / 4 * g - 2 + slot
+    (PACK_LOADS slots a lane), all four words of a loaded slot staged at
+    their place in the output's 16-byte chunks, in a buffer PAD shorts
+    wider on each side; then a 16-byte store for every chunk inside the
+    block's range and 2-byte stores for the shorts of the partial first
+    and last chunks. Asserts that every short up to the filler is written
+    once and none after it, that every staged write lies inside the
+    buffer, that every store reads the payload word of its place (not a
+    word staged past the block's ends), and that a block takes at most 14
+    2-byte payload stores."""
+    n = sizes.size
+    offsets = model_scan(sizes, seed)
+    body = pack.HEADER_SHORTS + 2 * n
+    out = np.full(body + capacity + 1, SENTINEL, dtype=np.int64)
+    writes = np.zeros(out.size, dtype=np.int64)
+
+    def store(at, values):
+        out[at] = values
+        np.add.at(writes, at, 1)
+
+    store(np.arange(pack.HEADER_SHORTS),
+          0xFFFF if header is None else header)
+    store(body + min(offsets[n], capacity), 0xFFFF)
+    i = np.arange(n)
+    store(pack.HEADER_SHORTS + 2 * i, streams[:, 0] & 0xFFFF)
+    store(pack.HEADER_SHORTS + 2 * i + 1, sizes & 0xFFFF)
+    slot = np.arange(32 * PACK_LOADS)         # lane + 32 * s
+    chunk = np.arange(STAGE // 8)
+    for b0 in range(0, n, MODEL_BATCH):
+        rows = streams[b0:b0 + MODEL_BATCH]
+        count = np.clip(sizes[b0:b0 + MODEL_BATCH].astype(np.int64) - 1, 0,
+                        WORDS - 1)
+        off = offsets[b0:b0 + rows.shape[0]]
+        room = capacity - off
+        c = np.where(room <= 0, 0, np.minimum(count, room))
+        first = body + off
+        shift = first & 7
+        chunk0 = first - shift
+        end = first + c
+        windows = (shift + c + STAGE - 1) // STAGE
+        scalar = np.zeros(rows.shape[0], dtype=np.int64)
+        for g in range(int(windows.max(initial=0))):
+            live = g < windows                     # the blocks with a window g
+            q = STAGE // 4 * g - 2 + slot
+            loaded = ((slot < STAGE // 4 + 3) & (q >= 0))[None, :] & (
+                4 * q[None, :] <= count[:, None]) & (count[:, None] > 0)
+            # the staged word of each buffer place (-1: none yet)
+            word = np.full((rows.shape[0], STAGE + 2 * PAD), -1,
+                           dtype=np.int64)
+            for e in range(4):
+                w = 4 * q + e
+                at = w[None, :] - 1 + shift[:, None] - STAGE * g
+                r, k = np.nonzero(loaded & live[:, None])
+                assert ((at[r, k] >= -PAD) & (at[r, k] < STAGE + PAD)).all()
+                word[r, PAD + at[r, k]] = w[k]
+            lo = chunk0[:, None] + STAGE * g + 8 * chunk[None, :]
+            skip = (lo + 8 <= first[:, None]) | (lo >= end[:, None]) | (
+                ~live[:, None])
+            whole = ~skip & (lo >= first[:, None]) & (lo + 8 <= end[:, None])
+            assert (lo[whole] % 8 == 0).all()      # 16-byte aligned stores
+            for t in range(8):
+                pos = lo + t
+                part = (~skip & ~whole & (pos >= first[:, None])
+                        & (pos < end[:, None]))
+                r, k = np.nonzero(whole | part)
+                w = word[r, PAD + 8 * k + t]
+                # the store reads the payload word of its place
+                assert (w == pos[r, k] - first[r] + 1).all()
+                assert ((w >= 1) & (w <= c[r])).all()
+                store(pos[r, k], rows[r, w] & 0xFFFF)
+                scalar += part.sum(axis=1)
+        assert (scalar <= 14).all()
+    used = body + min(offsets[n], capacity) + 1
+    assert (writes[:used] == 1).all() and not writes[used:].any()
     return out
 
 
-def model_unpack(shorts, n, payload):
+def model_unpack(shorts, n, payload, shift=0, seed=0):
     """The unpack's scan (sizes read from the pairs, unsigned) and
-    unpack_kernel: warp i writes its row as 1024 int4 stores, lane l the
-    stores l, l + 32, ..."""
-    u = shorts.astype(np.int64)
+    unpack_kernel, the codestream `shift` shorts past a 16-byte boundary
+    of its allocation: each warp reads the 16-byte chunks of that
+    allocation that hold its payload's shorts (no other: rounded out, not
+    over), UNPACK_LOADS slots a lane from the window's first chunk, stages
+    them as they are, and writes its row a window at a time as 16-byte
+    stores, each of its four words from the buffer at the block's shift:
+    the MSB word, the payload words, then -1. The windows past the block's
+    count hold no payload word whatever the offset: the warp writes them
+    (the MSB word and -1) before the scan; the model asserts that the
+    windows written after it are those the count reaches."""
+    u = np.asarray(shorts).astype(np.int64)
+    chunks = np.full(-(-(shift + u.size) // 8) * 8, -9, dtype=np.int64)
+    chunks[shift:shift + u.size] = u
+    chunks = chunks.reshape(-1, 8)
     sizes = u[pack.HEADER_SHORTS + 1:pack.HEADER_SHORTS + 2 * n:2]
-    offsets = model_scan(sizes)
+    offsets = model_scan(sizes, seed)
     body = pack.HEADER_SHORTS + 2 * n
-    out = np.full((n, WORDS), 0x12345, dtype=np.int32)
-    stores = np.array([q for lane in range(32)
-                       for q in range(lane, WORDS // 4, 32)])
-    assert np.array_equal(np.sort(stores), np.arange(WORDS // 4))
-    w = (4 * stores[:, None] + np.arange(4)[None, :]).reshape(-1)
-    for i in range(n):
-        off = offsets[i]
-        c = int(max(0, min(offsets[i + 1] - off, payload - off)))
-        src = u[body + off + np.clip(w - 1, 0, max(c - 1, 0))] if c else 0
-        out[i, w] = np.where(w == 0, u[pack.HEADER_SHORTS + 2 * i],
-                             np.where(w <= c, src, -1))
+    out = np.full((n, WORDS), SENTINEL, dtype=np.int64)
+    slot = np.arange(32 * UNPACK_LOADS)
+    for b0 in range(0, n, MODEL_BATCH):
+        m = min(MODEL_BATCH, n - b0)
+        i = np.arange(b0, b0 + m)
+        msb = u[pack.HEADER_SHORTS + 2 * i]
+        count = np.clip(sizes[i] - 1, 0, WORDS - 1)
+        room = payload - offsets[i]
+        c = np.where(room <= 0, 0, np.minimum(count, room))
+        s0 = body + offsets[i] + shift     # payload word w: short s0 + w - 1
+        for g in range(WORDS // STAGE):
+            base = (s0 + STAGE * g - 1) >> 3
+            w_lo = max(1, STAGE * g)
+            w_hi = np.minimum(c, STAGE * (g + 1) - 1)
+            k = base[:, None] + slot[None, :]
+            load = ((w_lo <= w_hi)[:, None] & (k >= ((s0 + w_lo - 1) >> 3)[:, None])
+                    & (k <= ((s0 + w_hi - 1) >> 3)[:, None]))
+            assert not load[:, STAGE // 8 + 1:].any()
+            # a loaded chunk holds a short of the block's payload
+            assert ((8 * k + 7 >= s0[:, None])
+                    & (8 * k <= (s0 + c - 1)[:, None]))[load].all()
+            buf = np.full((m, STAGE + 8), -7, dtype=np.int64)
+            r, j = np.nonzero(load)
+            buf[r[:, None], 8 * j[:, None] + np.arange(8)] = chunks[k[r, j]]
+            # word STAGE * g + x of the row is buf[at + x]
+            at = s0 - 1 + STAGE * g - 8 * base
+            assert ((at >= 0) & (at < 8)).all()
+            x = np.arange(STAGE)
+            w = STAGE * g + x
+            used = (w[None, :] >= 1) & (w[None, :] <= c[:, None])
+            at = np.where(used, at[:, None] + x[None, :], 0)
+            staged = np.take_along_axis(buf, at, axis=1)
+            assert (staged[used] >= 0).all()       # the payload's own shorts
+            row = np.where(w[None, :] == 0, msb[:, None],
+                           np.where(used, staged, -1))
+            # windows written before the scan: none of words 1..count
+            early = g >= np.where(count > 0, count // STAGE + 1, 0)
+            assert not used[early].any()
+            assert ((w[None, :] < 1) | (w[None, :] > count[:, None]))[
+                early].all()
+            out[i, STAGE * g:STAGE * (g + 1)] = row
     return out, sizes
 
 
 @pytest.mark.parametrize("n", [0, 1, 7, 1025, 1500, 4080, 16384])
 def test_kernel_model_scan_equals_cumsum(n):
-    """The scan's chunks (N not a multiple of the 1024 threads, empty
-    chunks past the end, N = 0) give the plain version's offsets."""
+    """The look-back scan (tiles not full, N = 0, tiles resolving in two
+    random orders, so that a tile walks past windows of 32 aggregates)
+    gives the plain version's offsets and total."""
     sizes = _sizes("mixed" if n < 2000 else "small", n,
                    np.random.default_rng(n))
     counts = sizes.astype(np.int64) - 1
     want = np.concatenate([[0], np.cumsum(counts)])
-    assert np.array_equal(model_scan(sizes), want)
+    for seed in (0, 1):
+        assert np.array_equal(model_scan(sizes, seed), want)
 
 
 @pytest.mark.parametrize("kind,n", [("empty", 0), ("mixed", 1),
@@ -231,12 +350,58 @@ def test_kernel_model_equals_plain(kind, n):
         got = model_pack(streams, sizes, h, payload)
         assert np.array_equal(got, want.astype(np.int64))
     # the worst-case buffer of a pack without `payload=`: its exact prefix
-    worst = model_pack(streams, sizes, None, (WORDS - 1) * n)
+    worst = model_pack(streams, sizes, None, (WORDS - 1) * n, seed=1)
     assert np.array_equal(worst[:want.size], want.astype(np.int64))
     assert np.array_equal(_pack(streams, sizes, None, payload), want)
     got_s, got_z = model_unpack(want, n, payload)
     want_s, want_z = _unpack(want, n, payload)
     assert np.array_equal(got_s, want_s) and np.array_equal(got_z, want_z)
+
+
+def _aligned_batch(count: int, tail: bool, seed: int):
+    """Codeblocks whose payload starts at every residue 0..7 of the
+    16-byte chunks: block 2r + 1 carries `count` words and starts at
+    residue r, block 2r before it is sized to put it there; with `tail`
+    one more block, so that the last tile is not full."""
+    rng = np.random.default_rng(seed)
+    n = 16 + tail
+    body = pack.HEADER_SHORTS + 2 * n
+    counts, off = [], 0
+    for r in range(8):
+        lead = (r - body - off) % 8 + 8 * int(rng.integers(0, 3))
+        counts += [lead, count]
+        off += lead + count
+    counts += [int(rng.integers(0, 20))] * tail
+    sizes = np.asarray(counts, dtype=np.int32) + 1
+    streams = np.full((n, WORDS), -1, dtype=np.int32)
+    keep = np.arange(WORDS)[None, :] < sizes[:, None]
+    streams[keep] = rng.integers(0, 1 << 16, size=int(sizes.sum()),
+                                 dtype=np.int32)
+    streams[:, 0] = rng.integers(0, 16, size=n)
+    return streams, sizes
+
+
+@pytest.mark.parametrize("tail", [False, True], ids=["full", "partial"])
+@pytest.mark.parametrize("count", [0, 1, 7, 8, 9, 15, 16, 4095])
+def test_kernel_model_alignments(count, tail):
+    """Every destination residue mod 8 with `count` payload words (heads
+    and tails of 0-7 shorts, bodies of 0, 1 and 511 chunks, a block over
+    five windows), full and partial tiles: the model's pack is the plain
+    pack, and its unpack, from a codestream at every 2-byte offset mod 16
+    of its allocation, the plain unpack."""
+    streams, sizes = _aligned_batch(count, tail, 7 * count + tail)
+    n = sizes.size
+    payload = int(sizes.sum()) - n
+    body = pack.HEADER_SHORTS + 2 * n
+    starts = body + np.concatenate([[0], np.cumsum(sizes - 1)])[:-1]
+    assert set(starts[1:16:2] % 8) == set(range(8))
+    want = _pack(streams, sizes, None)
+    assert np.array_equal(model_pack(streams, sizes, None, payload),
+                          want.astype(np.int64))
+    want_s, want_z = _unpack(want, n, payload)
+    for shift in range(8):
+        got_s, got_z = model_unpack(want, n, payload, shift, seed=shift)
+        assert np.array_equal(got_s, want_s) and np.array_equal(got_z, want_z)
 
 
 def test_kernel_model_unpack_reads_unsigned_words():
@@ -334,3 +499,23 @@ def test_entry_points_are_bound():
         m = re.search(r'extern "C" int ' + name + r"\(([^)]*)\)", src)
         assert m, name
         assert m.group(1).count(",") + 1 == len(kernels._SIGNATURES[name])
+
+
+@pytest.mark.parametrize("name,value", [("kTileBlocks", TILE_BLOCKS),
+                                        ("kStage", STAGE),
+                                        ("kLookBack", LOOK_BACK),
+                                        ("kPad", PAD),
+                                        ("kStatusStride",
+                                         pack.STATUS_STRIDE)])
+def test_model_shapes_are_the_kernels(name, value):
+    """The model's tile and window are csrc/pack.cu's, and its load slots
+    follow from them as the source computes them."""
+    with open(os.path.join(kernels.CSRC_DIR, "pack.cu")) as f:
+        src = f.read()
+    m = re.search(r"constexpr int " + name + r" = (\d+);", src)
+    assert m and int(m.group(1)) == value
+    assert PACK_LOADS == -(-(STAGE // 4 + 3) // 32)
+    assert UNPACK_LOADS == -(-(STAGE // 8 + 1) // 32)
+    assert pack.status_words(0) == pack.STATUS_STRIDE + 1
+    assert pack.status_words(16384) == (16384 // TILE_BLOCKS
+                                        * pack.STATUS_STRIDE + 1)
