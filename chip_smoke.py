@@ -59,10 +59,14 @@ or of the JAX package `picsong_tpu` is imported:
   torch.profiler, the card's busy time over one 1080p encode;
 - the distribution layer (`sharded_phase`), every shard on the card:
   `ShardedCodec` at 2048x2048 wl=5 lossless on 2, 3 and 4 shards, lossy
-  2048x2048 wl=3 and RGB 2048x2560 lossy on 2, 1920x1080 on 4 (uneven
-  rows), each codestream equal to the unsharded card codestream and each
+  2048x2048 wl=3 and RGB 2048x2560 lossy on 2, 16-bit lossy on 3,
+  1920x1080 on 4 (uneven rows) and two plans that gather the deep levels
+  on 4, each codestream equal to the unsharded card codestream and each
   decode to the unsharded decode, one BPC launch per codeblock shard and
-  component; device encode / decode and CLI round trips unsharded and on
+  component, one launch of X2's and of X4's shard mode a shard and level
+  and no torch-op lifting, every shard-mode call byte-equal to its plain
+  version (also from inputs off 16-byte alignment); device encode /
+  decode and CLI round trips unsharded and on
   2 and 4 shards; the CLI's -sharded 2 round trip; 1080p video (24
   frames) with devices=2 against devices=1; two multi-host processes in
   a gloo group on the card (this script with --multihost-worker), the
@@ -106,7 +110,9 @@ kernels line's launches are the cp2 kernels', X2/X4's and X3's on the
 counts reset just before it) beside the kernels' time and bound at that
 workload's batch shape, under "sharded" each sharded workload's
 launches (counts reset just before its encode) beside the kernels' time
-and bound at the shape of its first shard's launch, and under "quality"
+and bound at the shape of its first shard's launch (X2 / X4: one image's
+shard-mode launches and their times beside X2's bound on the image), and
+under "quality"
 the quality report's rows' launches at 512^2 and at 2048^2 (counts reset
 just before each row and read after it, summed by size) and lut_eval's,
 beside the kernels' time and bound
@@ -125,6 +131,7 @@ and power limit, then
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -263,6 +270,29 @@ DWT_TIMED = ("2048^2 5/3 wl=5", "(8, 1088, 1920) 5/3 wl=5",
              "8192^2 5/3 wl=5", "RGB 2048x2560 ICT qs 1 wl=5")
 
 
+def offset_views(tensors, skip: int):
+    """Contiguous copies of `tensors`, each `skip` values into a buffer of
+    its own on its device (off 16-byte alignment for skip 1-3 words)."""
+    import torch
+    views = []
+    for t in tensors:
+        buf = torch.zeros(t.numel() + 16, dtype=t.dtype, device=t.device)
+        buf[skip:skip + t.numel()] = t.reshape(-1)
+        views.append(buf[skip:skip + t.numel()].view(t.shape))
+    return views
+
+
+def bit_diff(a, b) -> int:
+    """The largest difference of two tensors' values, float32 by their
+    bits (0: byte-equal)."""
+    import torch
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return 1 << 40
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return int((a.long() - b.long()).abs().max()) if a.numel() else 0
+
+
 def dwt_phase(dev, tag: str) -> dict:
     """X2 and X4 (`transform/dwt_cuda.py`) against their plain versions on
     the card in every case of DWT_CASES: the kernels' codeblocks, maximum
@@ -324,14 +354,6 @@ def dwt_phase(dev, tag: str) -> dict:
             _require(all(torch.equal(b, s) for b, s in zip(back, samples)),
                      f"dwt {label}: lossless X4(X2(samples)) == samples")
         cases[label] = (cfg, samples, blocks)
-    def offset_views(tensors, skip):
-        views = []
-        for t in tensors:
-            buf = torch.zeros(t.numel() + 16, dtype=t.dtype, device=dev)
-            buf[skip:skip + t.numel()] = t.reshape(-1)
-            views.append(buf[skip:skip + t.numel()].view(t.shape))
-        return views
-
     for label, skip in DWT_OFFSET:
         cfg, samples, blocks = cases[label]
         views = offset_views(samples, skip)
@@ -769,6 +791,33 @@ SHARDS = (2, 3, 4)
 UNEVEN = (1920, 1080, 4)                 # width, height, shards
 SHARDED_VIDEO = (1920, 1080, 24, 8)      # width, height, frames, batch
 HOSTS = 2
+# the torch-op lifting of transform/dwt.py and X2/X4's plain versions
+# (transform/dwt_cuda.py): none may run on a card's sharded path
+PLAIN_DWT = ("lift_vertical", "lift_horizontal", "quantize_level",
+             "unlift_horizontal", "unlift_vertical", "dequantize",
+             "dwt_forward", "dwt_reverse")
+PLAIN_DWT_CUDA = ("prep", "finish", "forward_plain", "reverse_plain",
+                  "forward_shard_plain", "reverse_shard_plain")
+
+
+@contextlib.contextmanager
+def recording(module, names, calls: list):
+    """Inside the block, each function `names` of `module` appends (name,
+    args, kwargs) to `calls` before it runs."""
+    saved = {n: getattr(module, n) for n in names}
+
+    def wrap(name, fn):
+        def recorded(*args, **kwargs):
+            calls.append((name, args, kwargs))
+            return fn(*args, **kwargs)
+        return recorded
+    for n, fn in saved.items():
+        setattr(module, n, wrap(n, fn))
+    try:
+        yield calls
+    finally:
+        for n, fn in saved.items():
+            setattr(module, n, fn)
 
 
 def _free_port() -> int:
@@ -831,22 +880,98 @@ def multihost_worker(argv: list[str]) -> int:
     return 0
 
 
-def sharded_phase(dev, tag: str, err: dict) -> dict:
+def shard_checks(label: str, calls) -> dict:
+    """Each shard-mode call in `calls` (`recording`'s of X2's and X4's
+    `forward_shard` / `reverse_shard`) again on its inputs, and on copies
+    of them one value past a 16-byte boundary, == its plain version on
+    the same inputs -> the max abs errors (X2, X4)."""
+    import torch
+
+    from picsong_tpu_torch.transform import dwt_cuda
+    e = {"forward": 0, "reverse": 0}
+    for name, args, _ in calls:
+        d = "forward" if name == "forward_shard" else "reverse"
+        ins, rest = args[0], args[1:6 if d == "forward" else 7]
+        if d == "forward":
+            want = dwt_cuda.forward_shard_plain(ins, *rest)
+            views = offset_views(ins, 1)
+            _require(not dwt_cuda.vector_loads(views),
+                     f"{label}: X2 shard input off 16 bytes")
+        else:
+            want = dwt_cuda.reverse_shard_plain(ins, *rest)
+            views = offset_views(ins, 1)
+            _require(not dwt_cuda.vector_block_loads(views),
+                     f"{label}: X4 shard bands off 16 bytes")
+        for x in (ins, views):
+            if d == "forward":
+                (bands, top), (want_bands, want_top) = (
+                    dwt_cuda.forward_shard(x, *rest), want)
+                got = max([bit_diff(top, want_top)] + [
+                    bit_diff(g, w) for g, w in zip(bands, want_bands)])
+            else:
+                got = bit_diff(dwt_cuda.reverse_shard(x, *rest), want)
+            e[d] = max(e[d], got)
+    torch.cuda.synchronize()
+    _require(e == {"forward": 0, "reverse": 0},
+             f"{label}: X2/X4 shard modes == plain at every shard and "
+             f"level, aligned and not; max abs err {e}")
+    return e
+
+
+def shard_times(calls, planes) -> dict:
+    """The shard-mode calls of one image (`recording`'s): CUDA events
+    around them (medians of 5), their device time (a CUDA graph), their
+    plain versions' time (median of 3), and X2's bound on the image's
+    sample `planes`."""
+    from picsong_tpu_torch.tools import kernel_ab
+    from picsong_tpu_torch.transform import dwt_cuda
+    bound, by = dwt_cuda.bound_ms(planes, calls[0][1][1])
+    t = {"bound_ms": bound, "bound_by": by}
+    for d, fn, plain, k in (
+            ("forward", dwt_cuda.forward_shard,
+             dwt_cuda.forward_shard_plain, 6),
+            ("reverse", dwt_cuda.reverse_shard,
+             dwt_cuda.reverse_shard_plain, 7)):
+        mine = [a[:k] for n, a, _ in calls if n == f"{d}_shard"]
+
+        def run(f, mine=mine):
+            return lambda: [f(*a) for a in mine]
+        t[f"{d}_ms"] = statistics.median(device_ms(run(fn), iters=5,
+                                                   warm=1))
+        t[f"{d}_device_ms"] = kernel_ab.graph_ms(run(fn))
+        t[f"{d}_plain_ms"] = statistics.median(device_ms(
+            run(plain), iters=3, warm=1))
+    return t
+
+
+def sharded_phase(dev, tag: str, err: dict, card: str) -> dict:
     """The distribution layer on the card (`dist/`), every shard on `dev`:
     - `ShardedCodec` at 2048^2 wl=5 lossless on 2, 3 and 4 shards, 2048^2
-      wl=3 lossy and RGB 2048x2560 lossy (trained lossy LUT) on 2, and
-      1920x1080 wl=5 lossless on 4 (17 codeblock rows: 5/4/4/4): each
-      codestream equal to the unsharded card codestream, each decode to
-      the unsharded decode (lossless: to the input), the BPC launches
-      (counts reset just before the encode, read after it and after the
-      decode) one per codeblock shard and component, none of another
-      mode, and as many X3 packs and unpacks; the kernels on shard 0's
-      codeblocks timed, with their bound;
-      on 2 shards, BIG_PICKS of them held to the plain coder;
+      wl=3 lossy and RGB 2048x2560 lossy (trained lossy LUT) on 2, 16-bit
+      2048^2 wl=5 9/7 qs 1 on 3, 1920x1080 wl=5 lossless on 4 (17
+      codeblock rows: 5/4/4/4), and two plans that gather the deep levels
+      on 4 (256^2 wl=5 9/7 qs 0.5 from level 4, 512x256 wl=6 5/3 from
+      level 5): each codestream equal to the unsharded card codestream,
+      each decode to the unsharded decode (lossless: to the input), the
+      BPC launches (counts reset just before the encode, read after it
+      and after the decode) one per codeblock shard and component, none
+      of another mode, and as many X3 packs and unpacks; X2's and X4's
+      shard modes launched once a shard and level each way (all the
+      components in one launch), and no torch-op lifting
+      (`transform/dwt.py`) and no plain version of X2/X4 run; every
+      shard-mode call of the round trip again on its inputs, and on
+      copies of them off 16-byte alignment (the scalar- and word-load
+      variants), byte-equal to its plain version (bands and maximum,
+      rows or samples); the shard-mode calls of one image timed against
+      their plain versions, with X2's bound; the BPC kernels on shard
+      0's codeblocks timed, with their bound; on 2 shards, BIG_PICKS of
+      them held to the plain coder;
     - device encode / decode and the CLI round trip at 2048^2 wl=5,
-      unsharded and on 2 and 4 shards, in one call;
+      unsharded and on 2 and 4 shards, in one call, beside the card's
+      name and power limit;
     - the CLI's -sharded 2 round trip at 2048^2 wl=5: the unsharded CLI's
-      file, a bit-exact decode, 2 launches a direction;
+      file, a bit-exact decode, 2 BPC launches and 10 of X2's and X4's
+      shard modes a direction;
     - 1080p video, SHARDED_VIDEO frames, devices=2 against devices=1
       (two turns): equal files and `_SIZE`, bit-exact decodes, one launch
       per share and batch;
@@ -854,7 +979,8 @@ def sharded_phase(dev, tag: str, err: dict) -> dict:
       (`multihost_worker`): the merged file equal to the single-host one,
       the merged decode to the input, the `ScalingReport` efficiency
       against the single-host walls.
-    Returns the kernels' sharded entries and the times."""
+    Returns the kernels' sharded entries, the shard modes' entries and
+    errors, and the times."""
     import numpy as np
     import torch
 
@@ -869,7 +995,8 @@ def sharded_phase(dev, tag: str, err: dict) -> dict:
     from picsong_tpu_torch.engine.batch import BatchCodec
     from picsong_tpu_torch.engine.pipeline import TorchCodec
     from picsong_tpu_torch.entropy import bpc, bpc_cuda
-    from picsong_tpu_torch.tools import goldens
+    from picsong_tpu_torch.tools import goldens, kernel_ab
+    from picsong_tpu_torch.transform import dwt, dwt_cuda
 
     def read(path):
         with open(path, "rb") as f:
@@ -880,11 +1007,23 @@ def sharded_phase(dev, tag: str, err: dict) -> dict:
                 "min_ms": min(samples), "max_ms": max(samples)}
 
     def kernels_at(label, blocks, args, kw, picks=False):
-        """The cp2 kernels on these blocks: round trip, optionally
-        BIG_PICKS blocks against the plain coder, times and bound."""
+        """The cp2 kernels on these blocks: round trip (a raw copy, size
+        4096, keeps 16-bit words, as in the reference: those blocks are
+        held to the plain decoder of the same streams, as
+        tests/test_torch_cuda.py does), optionally BIG_PICKS blocks
+        against the plain coder, times and bound."""
         s_k, z_k = bpc_cuda.encode_blocks(blocks, *args, **kw)
-        _require(torch.equal(bpc_cuda.decode_blocks(s_k, z_k, *args, **kw),
-                             blocks), f"{label}: kernels' round trip")
+        back = bpc_cuda.decode_blocks(s_k, z_k, *args, **kw)
+        raw = z_k == 4096
+        _require(torch.equal(back[~raw], blocks[~raw]),
+                 f"{label}: kernels' round trip")
+        if bool(raw.any()):
+            idx = raw.nonzero()[:, 0]
+            sub = (args[0], *(m[idx] for m in args[1:]))
+            _require(torch.equal(back[idx], bpc.decode_blocks_plain(
+                s_k[idx], z_k[idx], *sub, **kw)),
+                f"{label}: {idx.numel()} raw copies decode as the plain "
+                "decoder's")
         if picks:
             idx = torch.linspace(0, blocks.shape[0] - 1, BIG_PICKS,
                                  device=dev).long()
@@ -918,7 +1057,8 @@ def sharded_phase(dev, tag: str, err: dict) -> dict:
                 bpc_cuda.DECODE_LAUNCHES["cp2"])
         _require(got == want, f"{what}: X3 launches {got}, want {want}")
 
-    out = {"workloads": [], "times": {}}
+    out = {"workloads": [], "times": {}, "dwt": [],
+           "dwt_err": {"forward": 0, "reverse": 0}}
     img = goldens.make_image(SIZE)
     rgb = [goldens.make_image(RGB_H, seed=s, width=RGB_W) for s in (5, 6, 7)]
     uw, uh, un = UNEVEN
@@ -936,9 +1076,21 @@ def sharded_phase(dev, tag: str, err: dict) -> dict:
         (f"RGB {RGB_W}x{RGB_H} wl={LEVELS} lossy trained", CodecConfig(
             width=RGB_W, height=RGB_H, wavelet_levels=LEVELS, is_rgb=True,
             components=3, is_lossy=True, qs=1.0), rgb_luts, rgb, 2),
+        (f"{SIZE}^2 16-bit wl={LEVELS} lossy qs 1", CodecConfig(
+            width=SIZE, height=SIZE, wavelet_levels=LEVELS, is_lossy=True,
+            qs=1.0, bit_depth=16, bps=16), cli._load_luts(
+                "neutral", LEVELS, 2, 0.0), goldens.make_image(
+                    SIZE, peak=65535), 3),
         (f"{uw}x{uh} wl={LEVELS} lossless", CodecConfig(
             width=uw, height=uh, wavelet_levels=LEVELS), neutral, uneven,
-         un)]
+         un),
+        ("256^2 wl=5 lossy qs 0.5 (gathered from level 4)", CodecConfig(
+            width=256, height=256, wavelet_levels=5, is_lossy=True, qs=0.5),
+         neutral, goldens.make_image(256), 4),
+        ("512x256 wl=6 lossless (gathered from level 5)", CodecConfig(
+            width=512, height=256, wavelet_levels=6),
+         cli._load_luts("neutral", 6, 2, 0.0),
+         goldens.make_image(256, width=512), 4)]
     singles = {}
     for name, c, (luts, params), pixels, n in jobs:
         if name not in singles:
@@ -949,12 +1101,27 @@ def sharded_phase(dev, tag: str, err: dict) -> dict:
         codec = ShardedCodec(c, luts, params, [dev] * n)
         n_comp = codec.n_components
         label = f"sharded {name} x{n}"
+        # one shard-mode launch a shard and level, the deep-level gather's
+        # levels once
+        level_launches = sum(len(spans) for spans in codec._plan)
+        calls, plain = [], []
         bpc_cuda.reset_launches()
         pack.reset_launches()
-        got = codec.encode(pixels)
-        enc = dict(bpc_cuda.ENCODE_LAUNCHES)
-        got_back = codec.decode(got)
-        dec = dict(bpc_cuda.DECODE_LAUNCHES)
+        dwt_cuda.reset_launches()
+        with recording(dwt_cuda, ("forward_shard", "reverse_shard"), calls), \
+                recording(dwt, PLAIN_DWT, plain), \
+                recording(dwt_cuda, PLAIN_DWT_CUDA, plain):
+            got = codec.encode(pixels)
+            x2 = (dwt_cuda.FORWARD_LAUNCHES, dwt_cuda.REVERSE_LAUNCHES)
+            enc = dict(bpc_cuda.ENCODE_LAUNCHES)
+            got_back = codec.decode(got)
+            x4 = dwt_cuda.REVERSE_LAUNCHES
+            dec = dict(bpc_cuda.DECODE_LAUNCHES)
+        _require(x2 == (level_launches, 0) and x4 == level_launches,
+                 f"{label}: X2 / X4 launches {x2[0]} / {x4}, want "
+                 f"{level_launches} each (a shard and level)")
+        _require(not plain, f"{label}: torch-op lifting or a plain X2/X4 "
+                 f"ran on the card: {sorted({k for k, _, _ in plain})}")
         only_cp2(enc, len(codec.blocks) * n_comp, f"{label} encode")
         only_cp2(dec, len(codec.blocks) * n_comp, f"{label} decode")
         x3_as_bpc(label)
@@ -969,10 +1136,19 @@ def sharded_phase(dev, tag: str, err: dict) -> dict:
             _require(all(np.array_equal(p, q) for p, q in zip(
                 planes, pixels if c.is_rgb else [pixels])),
                 f"{label}: decode bit-exact")
-        blocks = codec.tile_planes(codec.upload(pixels))
+        e = shard_checks(label, calls)
+        for d in e:
+            out["dwt_err"][d] = max(out["dwt_err"][d], e[d])
+        up = codec.upload(pixels)
+        whole = [torch.empty((codec.ah, codec.aw), dtype=up[0][0].dtype,
+                             device="meta")] * n_comp
+        xt = shard_times(calls, whole)
+        out["dwt"].append({"workload": f"{name}, {n} shards", "shards": n,
+                           "launches": level_launches, **xt})
+        del calls
+        blocks, tops = codec.tile_planes(up)
         s0 = codec.blocks[0][0]
-        kw = dict(codec._kw, n_planes=codec._n_planes(
-            [b for comp in blocks for b in comp]))
+        kw = dict(codec._kw, n_planes=codec._n_planes(tops))
         k = kernels_at(label, blocks[0][0], codec._bpc_args(s0, 0), kw,
                        picks=(n == 2 and not c.is_lossy))
         out["workloads"].append({
@@ -987,7 +1163,15 @@ def sharded_phase(dev, tag: str, err: dict) -> dict:
               + f"; launches {enc['cp2']} / {dec['cp2']} (shards x "
               f"components); shard 0: {k['codeblocks']} codeblocks, "
               f"kernels {k['encode_ms']:.4f} / {k['decode_ms']:.4f} ms, "
-              f"bound {k['bound_ms']:.5f} ms ({k['bound_by']})")
+              f"bound {k['bound_ms']:.5f} ms ({k['bound_by']}); X2 / X4 "
+              f"shard modes: {level_launches} launches each way, byte-"
+              f"equal to plain (and off 16 bytes), one image's calls "
+              f"{xt['forward_ms']:.4f} / {xt['reverse_ms']:.4f} ms, device "
+              f"{xt['forward_device_ms']:.4f} / "
+              f"{xt['reverse_device_ms']:.4f} ms, plain "
+              f"{xt['forward_plain_ms']:.4f} / {xt['reverse_plain_ms']:.4f}"
+              f" ms, bound {xt['bound_ms']:.5f} ms ({xt['bound_by']}); no "
+              "torch-op lifting")
 
     # times at 2048^2 wl=5: unsharded, then 2 and 4 shards, in one call
     tmp = tempfile.TemporaryDirectory()
@@ -1010,10 +1194,14 @@ def sharded_phase(dev, tag: str, err: dict) -> dict:
 
     bpc_cuda.reset_launches()
     pack.reset_launches()
+    dwt_cuda.reset_launches()
     enc2, dec2 = cli_pair(2)
     only_cp2(dict(bpc_cuda.ENCODE_LAUNCHES), 2, "CLI -sharded 2 encode")
     only_cp2(dict(bpc_cuda.DECODE_LAUNCHES), 2, "CLI -sharded 2 decode")
     x3_as_bpc("CLI -sharded 2")
+    x24 = (dwt_cuda.FORWARD_LAUNCHES, dwt_cuda.REVERSE_LAUNCHES)
+    _require(x24 == (2 * LEVELS, 2 * LEVELS),
+             f"CLI -sharded 2: X2 / X4 launches {x24}, want {2 * LEVELS} each")
     enc1, _ = cli_pair(1)
     _require(read(enc2) == read(enc1) and read(enc2 + "_SIZE")
              == read(enc1 + "_SIZE"), "CLI -sharded 2 file == unsharded")
@@ -1021,7 +1209,8 @@ def sharded_phase(dev, tag: str, err: dict) -> dict:
              "CLI -sharded 2 round trip bit-exact")
     out["cli_launches"] = 2
     print(f"{tag} CLI -sharded 2 {SIZE}^2 wl={LEVELS}: file == the "
-          "unsharded CLI file, round trip bit-exact, launches 2 / 2")
+          "unsharded CLI file, round trip bit-exact, BPC launches 2 / 2, "
+          f"X2 / X4 shard modes {x24[0]} / {x24[1]}")
     single = TorchCodec(cfg, luts, params, dev)
     samples = [torch.from_numpy(img).to(dev)]
     coded1, n_pl = single.encode_planes(samples)
@@ -1045,7 +1234,7 @@ def sharded_phase(dev, tag: str, err: dict) -> dict:
         print(f"{tag} {SIZE}^2 wl={LEVELS} {k}: " + ", ".join(
             f"{m} median {statistics.median(x):.4f} ms (min {min(x):.4f}, "
             f"max {max(x):.4f}; {mp / statistics.median(x):.1f} MPix/s)"
-            for m, x in v.items()) + f" over {ITERS}")
+            for m, x in v.items()) + f" over {ITERS} ({card})")
     tmp.cleanup()
 
     # 1080p video: devices=2 against devices=1, two turns
@@ -2182,7 +2371,7 @@ def main() -> int:
     # ---- 15. the distribution layer: sharded images, frame-parallel and
     # multi-host video, every shard on the card ----------------------------
     stamp("15")
-    shd = sharded_phase(dev, tag, err)
+    shd = sharded_phase(dev, tag, err, card)
 
     # ---- 16. the quality tools: QUALITY.md's rows and lut_eval on the
     # card -----------------------------------------------------------------
@@ -2255,7 +2444,8 @@ def main() -> int:
             "name": f"dwt_{d}", "route": "cuda", "design": designs[d],
             "source": f"{src_dir}/dwt_{d}.cu",
             "replaces": f"picsong_tpu/transform/dwt.py:{line}",
-            "launches": dwt_launches[d], "max_abs_err": dwt["err"][d],
+            "launches": dwt_launches[d],
+            "max_abs_err": max(dwt["err"][d], shd["dwt_err"][d]),
             "ms": main_dwt[f"{d}_ms"], "plain_ms": main_dwt[f"{d}_plain_ms"],
             "device_ms": main_dwt[f"{d}_device_ms"],
             "bound_ms": main_dwt["bound_ms"],
@@ -2271,6 +2461,14 @@ def main() -> int:
         entries[-1]["levels_ms"] = [
             {"workload": label, "wavelet": wavelet, "ms": levels}
             for (label, wavelet), levels in dwt["split"][d].items()]
+        # the shard mode on ShardedCodec's path: one image's launches (a
+        # shard and level) and their times, against X2's bound on the image
+        entries[-1]["sharded"] = [{
+            "workload": r["workload"], "shards": r["shards"],
+            "launches": r["launches"], "ms": r[f"{d}_ms"],
+            "device_ms": r[f"{d}_device_ms"], "plain_ms": r[f"{d}_plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"]}
+            for r in shd["dwt"]]
     # X3 at the main path's streams; launches on its two CLI round trips
     main_x3 = x3["times"][f"{SIZE}^2 wl={LEVELS} main path"]
     for d, line in (("pack", 1818), ("unpack", 1832)):

@@ -43,7 +43,6 @@ host NumPy: they cut and glue bytes that are already on the host.
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 
 import numpy as np
@@ -52,7 +51,7 @@ import torch
 from .. import kernels
 from ..core import spec
 from ..entropy.bpc_cuda import BYTES_PER_S, _check, _check_aligned
-from ..transform.dwt_cuda import _device_type
+from ..transform.dwt_cuda import _device_type, _on
 
 HEADER_SHORTS = 9
 # codeblocks a CTA of csrc/pack.cu takes, a tile of its scan (kTileBlocks),
@@ -168,17 +167,6 @@ def unpack_streams_plain(stream: torch.Tensor, n_blocks: int,
 # --------------------------------------------------------------------------
 # The dispatching entry points and the kernels
 # --------------------------------------------------------------------------
-
-def _on(dev: torch.device):
-    """The device and the raw handle of its current stream for a launch:
-    `torch.cuda.device` is entered only when `dev` is not the current
-    device, and the handle is read without a Stream object (the two cost
-    3.6 and 5.6 us of a 2048^2 call's host time on an H100; kernel_ab
-    --pack)."""
-    ctx = (contextlib.nullcontext() if dev.index == torch.cuda.current_device()
-           else torch.cuda.device(dev))
-    return ctx, torch._C._cuda_getCurrentRawStream(dev.index)
-
 
 def _check_payload(payload: int | None) -> None:
     if payload is not None and payload < 0:

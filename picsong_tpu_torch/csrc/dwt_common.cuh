@@ -23,6 +23,18 @@
 // (__fadd_rn, __fsub_rn, __fmul_rn, __fmaf_rn), which nvcc never contracts
 // or reorders, and divides through `div_rn`.
 //
+// Shard mode (the kShard variants, `dist/sharded.py`): one launch lifts
+// one level of the rows [r0, r1) of a taller plane, from a buffer holding
+// the plane rows [in0, in1): the shard's rows and the halo its neighbours
+// lend it (X2: HALO rows; X4: HALO / 2 band rows; none past the plane's
+// top or bottom). Rows are counted from the plane's top, so the edge rule
+// fires only at the plane's first and last row. Rows outside the buffer
+// load as 0 and reach only halo positions, since the halo is the lifting's
+// whole reach; only rows [r0, r1) are stored: X2 as row-major band rows,
+// X4 as rows of the next level's plane or of samples. The whole-plane
+// variants are the same code with r0 = in0 = 0 and r1 = in1 = the plane's
+// height as constants.
+//
 // What bounds these kernels on an H100: bytes. A level reads its plane
 // (+13% of halo for 5/3, +27% for 9/7) and writes its subbands; the bound
 // counts the samples read once and the codeblocks written once
@@ -53,8 +65,19 @@ struct Tile {
 };
 
 // The sample types, as the C entry points take them
-// (transform/dwt_cuda.py _SAMPLE_TYPES).
-enum SampleType { kU8 = 0, kI8 = 1, kU16 = 2, kI16 = 3 };
+// (transform/dwt_cuda.py _SAMPLE_TYPES); kValues: a shard-mode X2 input of
+// int32 (5/3) or float (9/7) values, taken as they are (no prep).
+enum SampleType { kU8 = 0, kI8 = 1, kU16 = 2, kI16 = 3, kValues = 4 };
+
+// Pointer i (known only at run time) of a kernel parameter array, by
+// selects: indexing the array would copy it to local memory.
+template <class P, int N>
+__device__ __forceinline__ P pick_ptr(const P (&p)[N], int i) {
+  P out = p[0];
+#pragma unroll
+  for (int k = 1; k < N; ++k) out = i == k ? p[k] : out;
+  return out;
+}
 
 // The float32 constants of one level, from the wrapper's array (its
 // layout: alpha, beta, gamma, delta, K1, K2, the reconstruction factor,

@@ -44,6 +44,12 @@
 // (dwt_common.cuh); this design reaches 20-30% of that bound: a CTA's
 // phases run one after another, and a deep level is a launch and one
 // CTA's chain.
+//
+// The kShard variants are the shard mode (dwt_common.cuh,
+// `picsong_dwt_forward_shard`): the same phases on one shard's rows of a
+// taller plane, from its rows and halo (samples with the prep at level
+// 0, else int32 / float values), the four bands stored as row-major band
+// rows instead of codeblocks.
 #include "dwt_common.cuh"
 
 namespace picsong {
@@ -65,13 +71,15 @@ constexpr int kStageBand = kTile / 2 * kStageRow + 8;
 static_assert(4 * kStageBand <= kSideA * kPitchA, "the staging fits in A");
 
 struct FwdArgs {
-  const void* src[3];       // level 0: the sample planes (gray, or R, G, B)
+  const void* src[3];       // level 0 (shard mode: every level): the input
+                            // planes (gray, or R, G, B; or the components)
   int type;                 // their SampleType
   int64_t batch_stride;     // samples between frames of a batch
   int64_t row_stride;       // samples between rows
   const void* ll_in;        // levels > 0: the previous level's LL planes
   void* ll_out;             // this level's LL planes (not at the last level)
-  int32_t* blocks;          // (comps, batch, ncb, 64, 64)
+  int32_t* blocks;          // (comps, batch, ncb, 64, 64); shard mode: the
+                            // band rows (4, comps, (r1 - r0) / 2, w / 2)
   int32_t* top;             // the coefficient maximum
   int64_t plane_words;      // ncb * 4096
   int batch, comps;
@@ -79,7 +87,32 @@ struct FwdArgs {
   int bx;                   // codeblock columns of the level-0 plane
   int last, offset;
   Consts c;
+  // shard mode (after the whole-plane fields, which keep their offsets)
+  int in0, in1;             // the plane rows `src` holds
+  int r0, r1;               // the plane rows to lift and store
 };
+
+// The plane rows a launch stores: [r0, r1) in shard mode, else all.
+template <bool kShard>
+__device__ __forceinline__ int row_end(const FwdArgs& a) {
+  return kShard ? a.r1 : a.h;
+}
+
+// Whether plane row gy is in the input: the buffer's rows in shard mode,
+// else the plane's.
+template <bool kShard>
+__device__ __forceinline__ bool row_in(const FwdArgs& a, int gy) {
+  return kShard ? gy >= a.in0 && gy < a.in1 : gy >= 0 && gy < a.h;
+}
+
+// Shard mode: the first byte of plane row gy of input plane i (a sample
+// plane, or kBytes 4 a value plane).
+template <int kBytes>
+__device__ __forceinline__ const char* shard_row(const FwdArgs& a, int i,
+                                                 int gy) {
+  return static_cast<const char*>(pick_ptr(a.src, i)) +
+         static_cast<int64_t>(gy - a.in0) * a.row_stride * kBytes;
+}
 
 template <class V>
 __device__ __forceinline__ V from_bits(uint32_t u) {
@@ -130,10 +163,17 @@ __device__ __forceinline__ typename Tile<kLossy>::V color(const FwdArgs& a,
 // The 16 bytes at plane row gy, columns xs.., of sample plane c of frame
 // f (level 0, kBytes 1 or 2) or of LL plane p (kBytes 4); 0 where the
 // chunk lies outside the plane (a vector chunk lies in it whole or not at
-// all).
-template <int kBytes, class V>
+// all) or, in shard mode, outside the buffer (batch 1: plane p is
+// component p).
+template <int kBytes, bool kShard, class V>
 __device__ __forceinline__ uint4 fetch_chunk(const FwdArgs& a, int c, int f,
                                              int p, int gy, int xs) {
+  if constexpr (kShard) {
+    if (!row_in<true>(a, gy) || xs < 0 || xs >= a.w)
+      return make_uint4(0, 0, 0, 0);
+    return __ldg(reinterpret_cast<const uint4*>(
+        shard_row<kBytes>(a, kBytes == 4 ? p : c, gy) + xs * kBytes));
+  }
   if (gy < 0 || gy >= a.h || xs < 0 || xs >= a.w)
     return make_uint4(0, 0, 0, 0);
   if constexpr (kBytes == 4)
@@ -153,14 +193,14 @@ __device__ __forceinline__ uint4 fetch_chunk(const FwdArgs& a, int c, int f,
 // previous level's LL values (kBytes 4: plane p); 0 outside the plane.
 // With kVec the chunk's 16 bytes of each plane are `u` (fetch_chunk), else
 // the values are read one at a time.
-template <bool kLossy, int kBytes, bool kVec>
+template <bool kLossy, int kBytes, bool kVec, bool kShard>
 __device__ __forceinline__ void store_chunk(
     const FwdArgs& a, int comp, int f, int p, int gy, int xs, int first,
     const uint4 (&u)[3], typename Tile<kLossy>::V* row) {
   using V = typename Tile<kLossy>::V;
   constexpr int kW = 16 / kBytes;
-  const bool row_in = gy >= 0 && gy < a.h;
-  const bool chunk_in = row_in && xs >= 0 && xs < a.w;
+  const bool gy_in = row_in<kShard>(a, gy);
+  const bool chunk_in = gy_in && xs >= 0 && xs < a.w;
   if constexpr (kBytes == 4) {
     if (first < 0 || first >= kSideA) return;
     V g[4];
@@ -170,15 +210,19 @@ __device__ __forceinline__ void store_chunk(
       g[2] = from_bits<V>(u[0].z);
       g[3] = from_bits<V>(u[0].w);
     } else {
-      const V* src = static_cast<const V*>(a.ll_in) +
-                     (static_cast<int64_t>(p) * a.h + gy) * a.w;
+      const V* src =
+          kShard ? reinterpret_cast<const V*>(shard_row<4>(a, p, gy))
+                 : static_cast<const V*>(a.ll_in) +
+                       (static_cast<int64_t>(p) * a.h + gy) * a.w;
 #pragma unroll
       for (int j = 0; j < kW; ++j)
-        g[j] = row_in && xs + j >= 0 && xs + j < a.w ? src[xs + j] : V(0);
+        g[j] = gy_in && xs + j >= 0 && xs + j < a.w ? src[xs + j] : V(0);
     }
     store4(row + first, g);
   } else {
-    const int64_t i0 = f * a.batch_stride + gy * a.row_stride + xs;
+    const int64_t i0 =
+        kShard ? static_cast<int64_t>(gy - a.in0) * a.row_stride + xs
+               : f * a.batch_stride + gy * a.row_stride + xs;
     const int planes = a.comps == 1 ? 1 : 3;
     const uint32_t sx = (a.type & 1) ? (kBytes == 1 ? 0x80u : 0x8000u) : 0u;
 #pragma unroll
@@ -190,7 +234,7 @@ __device__ __forceinline__ void store_chunk(
       for (int e = 0; e < 4; ++e) {
         const int j = 4 * m + e;
         const bool in = kVec ? chunk_in
-                             : row_in && xs + j >= 0 && xs + j < a.w;
+                             : gy_in && xs + j >= 0 && xs + j < a.w;
         int32_t s3[3] = {0, 0, 0};
 #pragma unroll
         for (int c = 0; c < 3; ++c)
@@ -247,13 +291,29 @@ __device__ __forceinline__ uint4 stage_words(
 
 // Four staged words of band `band` at band row y, band columns x.. of
 // plane p into their place: codeblock order, or at the intermediate LL
-// the next level's input plane; an int4 when `vec`, else those inside the
-// band one at a time.
+// the next level's input plane; in shard mode the band's rows, row-major
+// from band row r0 / 2; an int4 when `vec`, else those inside the band
+// one at a time.
+template <bool kShard>
 __device__ __forceinline__ void put_words(const FwdArgs& a, int p, int band,
                                           int y, int x, bool vec,
                                           const uint4& u) {
   const int h2 = a.h >> 1, w2 = a.w >> 1;
   const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+  if constexpr (kShard) {
+    const int rows = (a.r1 - a.r0) >> 1;
+    uint32_t* out = reinterpret_cast<uint32_t*>(a.blocks) +
+                    ((static_cast<int64_t>(band) * a.comps + p) * rows + y -
+                     (a.r0 >> 1)) * w2 + x;
+    if (vec) {
+      *reinterpret_cast<uint4*>(out) = u;
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (x + e < w2) out[e] = w[e];
+    }
+    return;
+  }
   if (band == 0 && !a.last) {
     uint32_t* out = static_cast<uint32_t*>(a.ll_out) +
                     (static_cast<int64_t>(p) * h2 + y) * w2 + x;
@@ -280,7 +340,7 @@ __device__ __forceinline__ void put_words(const FwdArgs& a, int p, int band,
   }
 }
 
-template <bool kLossy, int kBytes, bool kVec>
+template <bool kLossy, int kBytes, bool kVec, bool kShard>
 __global__ void __launch_bounds__(kFwdThreads, 4)
 dwt_forward_kernel(const FwdArgs a) {
   using V = typename Tile<kLossy>::V;
@@ -295,7 +355,9 @@ dwt_forward_kernel(const FwdArgs a) {
   uint32_t* S = reinterpret_cast<uint32_t*>(A);  // the staging, over A
   const int p = blockIdx.z;                    // component * batch + frame
   const int comp = p / a.batch, f = p - comp * a.batch;
-  const int y0 = blockIdx.y * kTile, x0 = blockIdx.x * kTile;
+  // shard mode: the tiles start at the shard's first row r0 (even)
+  const int y0 = kShard ? a.r0 + blockIdx.y * kTile : blockIdx.y * kTile;
+  const int x0 = blockIdx.x * kTile;
   const int t = threadIdx.x;
 
   // load: item `it` is chunk q of plane row y0 - H + row, A's row
@@ -312,8 +374,8 @@ dwt_forward_kernel(const FwdArgs a) {
 #pragma unroll
       for (int c = 0; c < (kBytes == 4 ? 1 : 3); ++c)
         if (it < kItems && c < a.comps)
-          u[i][c] = fetch_chunk<kBytes, V>(a, c, f, p, y0 - H + row,
-                                           x0 - kLead + kW * q);
+          u[i][c] = fetch_chunk<kBytes, kShard, V>(a, c, f, p, y0 - H + row,
+                                                   x0 - kLead + kW * q);
     }
   }
 #pragma unroll
@@ -321,7 +383,7 @@ dwt_forward_kernel(const FwdArgs a) {
     const int it = t + i * kFwdThreads;
     const int row = it / kChunks, q = it - row * kChunks;
     if (it < kItems)
-      store_chunk<kLossy, kBytes, kVec>(
+      store_chunk<kLossy, kBytes, kVec, kShard>(
           a, comp, f, p, y0 - H + row, x0 - kLead + kW * q,
           kPad - kLead + kW * q, u[i], &A[(kPad - H + row) * kPitchA]);
   }
@@ -333,7 +395,7 @@ dwt_forward_kernel(const FwdArgs a) {
     const int s = t / kCols;
     const int col = kPad - H + t - s * kCols;
     const int g0 = y0 + kStrip * s - H;
-    if (g0 + H < a.h) {
+    if (g0 + H < row_end<kShard>(a)) {
       V v[N];
 #pragma unroll
       for (int i = 0; i < N; ++i)
@@ -355,7 +417,7 @@ dwt_forward_kernel(const FwdArgs a) {
   if (t < kStrips * kTile) {
     const int r = t % kTile, k = t / kTile;
     const int g0 = x0 + kStrip * k - H;
-    if (y0 + r < a.h && g0 + H < a.w) {
+    if (y0 + r < row_end<kShard>(a) && g0 + H < a.w) {
       V v[N];
 #pragma unroll
       for (int i = 0; i < N; ++i)
@@ -391,10 +453,10 @@ dwt_forward_kernel(const FwdArgs a) {
     const int yl = t >> 3, c4 = t & 7;
     const int y = (y0 >> 1) + yl, x = (x0 >> 1) + 4 * c4;
     const int w2 = a.w >> 1;
-    if (y < (a.h >> 1) && x < w2) {
+    if (y < (row_end<kShard>(a) >> 1) && x < w2) {
 #pragma unroll
       for (int band = 0; band < 4; ++band)
-        put_words(a, p, band, y, x, (w2 & 3) == 0,
+        put_words<kShard>(a, p, band, y, x, (w2 & 3) == 0,
                   *reinterpret_cast<const uint4*>(
                       &S[band * kStageBand + yl * kStageRow + 4 * c4]));
     }
@@ -404,20 +466,22 @@ dwt_forward_kernel(const FwdArgs a) {
 }
 
 // One level: the variant of the level's input (kBytes of a value, vector
-// or scalar loads).
-template <bool kLossy>
+// or scalar loads) and of its rows (kShard).
+template <bool kLossy, bool kShard = false>
 void launch_level(const FwdArgs& a, int bytes, bool vec, dim3 grid,
                   cudaStream_t s) {
-  if (bytes == 1) {
-    if (vec) dwt_forward_kernel<kLossy, 1, true><<<grid, kFwdThreads, 0, s>>>(a);
-    else dwt_forward_kernel<kLossy, 1, false><<<grid, kFwdThreads, 0, s>>>(a);
-  } else if (bytes == 2) {
-    if (vec) dwt_forward_kernel<kLossy, 2, true><<<grid, kFwdThreads, 0, s>>>(a);
-    else dwt_forward_kernel<kLossy, 2, false><<<grid, kFwdThreads, 0, s>>>(a);
-  } else {
-    if (vec) dwt_forward_kernel<kLossy, 4, true><<<grid, kFwdThreads, 0, s>>>(a);
-    else dwt_forward_kernel<kLossy, 4, false><<<grid, kFwdThreads, 0, s>>>(a);
-  }
+  const auto go = [&](void (*kernel)(FwdArgs)) {
+    kernel<<<grid, kFwdThreads, 0, s>>>(a);
+  };
+  if (bytes == 1)
+    go(vec ? dwt_forward_kernel<kLossy, 1, true, kShard>
+           : dwt_forward_kernel<kLossy, 1, false, kShard>);
+  else if (bytes == 2)
+    go(vec ? dwt_forward_kernel<kLossy, 2, true, kShard>
+           : dwt_forward_kernel<kLossy, 2, false, kShard>);
+  else
+    go(vec ? dwt_forward_kernel<kLossy, 4, true, kShard>
+           : dwt_forward_kernel<kLossy, 4, false, kShard>);
 }
 
 }  // namespace
@@ -480,4 +544,52 @@ extern "C" int picsong_dwt_forward(const void* s0, const void* s1,
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return 0;
+}
+
+// X2's shard mode: one launch of level `level` of one image's `comps`
+// planes (h x w, the level's plane) on `stream`, lifting and storing the
+// plane rows [r0, r1) (even) from input planes that hold the rows [in0,
+// in1) (the shard's rows and its halo, clipped at the plane), `row_stride`
+// samples apart: sample planes of `type` with the prep (level 0), or
+// (type kValues) int32 / float values. Writes the band rows (4, comps,
+// (r1 - r0) / 2, w / 2) of LL, HL, LH, HH to `bands` (an intermediate LL
+// as its values' bits, the rest quantized) and their maximum magnitude
+// into `top` by atomicMax (not zeroed here). `vec`: the wrapper's check
+// that every plane's base and row stride are multiples of 16 bytes.
+// Returns the launch's cudaError_t, or 0.
+extern "C" int picsong_dwt_forward_shard(
+    const void* s0, const void* s1, const void* s2, int type, int vec,
+    long long row_stride, int comps, int h, int w, int level, int levels,
+    int lossy, int offset, int in0, int in1, int r0, int r1,
+    const float* consts, int32_t* bands, int32_t* top, void* stream) {
+  using namespace picsong::dwt;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  FwdArgs a = {};
+  a.src[0] = s0;
+  a.src[1] = s1;
+  a.src[2] = s2;
+  a.type = type;
+  a.row_stride = row_stride;
+  a.blocks = bands;
+  a.top = top;
+  a.batch = 1;
+  a.comps = comps;
+  a.h = h;
+  a.w = w;
+  a.last = level == levels - 1;
+  a.offset = offset;
+  a.in0 = in0;
+  a.in1 = in1;
+  a.r0 = r0;
+  a.r1 = r1;
+  a.c = level_consts(consts, level);
+  const dim3 grid((w + kTile - 1) / kTile, (r1 - r0 + kTile - 1) / kTile,
+                  static_cast<unsigned>(comps));
+  const int bytes =
+      type == kValues ? 4 : (type == kU8 || type == kI8 ? 1 : 2);
+  if (lossy)
+    launch_level<true, true>(a, bytes, vec != 0, grid, s);
+  else
+    launch_level<false, true>(a, bytes, vec != 0, grid, s);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -59,6 +59,11 @@
 // device time reaches 24-45% of that bound for 5/3 and 12-24% for 9/7,
 // whose dequantization and float lifting take about twice the time
 // (PERF.md).
+//
+// The kShard variants are the shard mode (dwt_common.cuh,
+// `picsong_dwt_reverse_shard`): the same phases on one shard's rows of a
+// taller plane, the four bands read from row-major band rows (the
+// shard's and its halo) instead of codeblocks and a deeper LL plane.
 #include <atomic>
 
 #include "dwt_common.cuh"
@@ -91,14 +96,26 @@ static_assert(kTile * kPitchT <= (kTile + 4) * kPitchS, "T fits over S");
 struct RevArgs {
   const int32_t* blocks[3];  // per component (batch, ncb, 64, 64)
   const void* ll_in;         // above the deepest level: its LL planes
-  void* out;                 // this level's planes, or (level 0) samples
+  void* out;                 // this level's planes, or (level 0) samples;
+                             // shard mode: (comps, r1 - r0, w)
   int64_t plane_words;       // ncb * 4096
   int batch, comps;
   int h, w;                  // this level's plane
   int bx;                    // codeblock columns of the level-0 plane
   int deepest, offset, lo, hi, type;
   Consts c;
+  // shard mode (after the whole-plane fields, which keep their offsets)
+  const void* band[4];       // the LL, HL, LH, HH band rows, (comps, in1 -
+                             // in0, w / 2) each
+  int in0, in1;              // the band rows `band` holds
+  int r0, r1;                // the plane rows to store
 };
+
+// The plane rows a launch stores: [r0, r1) in shard mode, else all.
+template <bool kShard>
+__device__ __forceinline__ int row_end(const RevArgs& a) {
+  return kShard ? a.r1 : a.h;
+}
 
 // The shared memory of a variant, in bytes: S and B, and the tiles of
 // every component but the last (whose tile lies over S).
@@ -111,12 +128,13 @@ constexpr int smem_bytes() {
 // What a thread of the load reads and how it converts it: chunk q of
 // band (dy, dx), band columns x .. x + 3, at any band row y -- the deeper
 // level's LL plane p for band 0 above the deepest level, else the frame's
-// codeblocks -- and the staged values: 5/3 the words as they are; 9/7 an
+// codeblocks; in shard mode the band's rows of component p -- and the
+// staged values: 5/3 the words as they are; 9/7 an
 // intermediate LL's float bits, else each codeblock value q dequantized
 // at the midpoint, (|q| + 0.5) with q's sign divided by the band's gain,
 // then by qs, then (the H band) by K1, 0 kept 0. Per-thread constants, no
 // branch a word: a warp's lanes hold different bands.
-template <bool kLossy>
+template <bool kLossy, bool kShard>
 struct Loader {
   const uint32_t* base;
   bool ll;
@@ -131,9 +149,14 @@ struct Loader {
     q = lane % kLoadChunks;
     x = (x0 >> 1) - kLead + kWords * q;
     ll = !(dy | dx) && !a.deepest;
-    base = ll ? static_cast<const uint32_t*>(a.ll_in) +
-                    static_cast<int64_t>(p) * (a.h >> 1) * (a.w >> 1)
-              : reinterpret_cast<const uint32_t*>(blocks);
+    if constexpr (kShard) {
+      base = static_cast<const uint32_t*>(pick_ptr(a.band, 2 * dy + dx)) +
+             static_cast<int64_t>(p) * (a.in1 - a.in0) * (a.w >> 1);
+    } else {
+      base = ll ? static_cast<const uint32_t*>(a.ll_in) +
+                      static_cast<int64_t>(p) * (a.h >> 1) * (a.w >> 1)
+                : reinterpret_cast<const uint32_t*>(blocks);
+    }
     const int band = 2 * dy + dx;
     gain = gain_of(a.c, band);
     rgain = rgain_of(a.c, band);
@@ -145,6 +168,8 @@ struct Loader {
   __device__ __forceinline__ const uint32_t* at(const RevArgs& a, int y,
                                                 int e) const {
     const int h2 = a.h >> 1, w2 = a.w >> 1;
+    if constexpr (kShard)
+      return base + static_cast<int64_t>(y - a.in0) * w2 + x + e;
     const int64_t in_ll = static_cast<int64_t>(y) * w2 + x + e;
     const int64_t in_blocks = block_word(y + dy * h2, x + e + dx * w2, a.bx);
     return base + (ll ? in_ll : in_blocks);
@@ -202,7 +227,7 @@ __device__ __forceinline__ void finish(const RevArgs& a,
 // Level 0's copy-out: the finish of frame f's tile from the components'
 // tiles (`tile(k)`), each 16 bytes of a sample row (16 / kBytes samples)
 // packed and stored at once.
-template <bool kLossy, int kComps, int kBytes, class Tiles>
+template <bool kLossy, int kComps, int kBytes, bool kShard, class Tiles>
 __device__ __forceinline__ void put_samples(const RevArgs& a, Tiles tile,
                                             int f, int y0, int x0) {
   using V = typename Tile<kLossy>::V;
@@ -212,7 +237,7 @@ __device__ __forceinline__ void put_samples(const RevArgs& a, Tiles tile,
   for (int it = threadIdx.x; it < kTile * kChunks; it += kRevThreads) {
     const int r = it / kChunks, q = it - r * kChunks;
     const int y = y0 + r, x = x0 + kW * q;
-    if (y >= a.h || x >= a.w) continue;
+    if (y >= row_end<kShard>(a) || x >= a.w) continue;
     uint32_t w[kComps][4] = {};
 #pragma unroll
     for (int m = 0; m < kW / 4; ++m) {
@@ -246,15 +271,19 @@ __device__ __forceinline__ void put_samples(const RevArgs& a, Tiles tile,
     for (int k = 0; k < kComps; ++k)
       *reinterpret_cast<uint4*>(
           static_cast<char*>(a.out) +
-          (((static_cast<int64_t>(f) * kComps + k) * a.h + y) * a.w + x) *
-              kBytes) = make_uint4(w[k][0], w[k][1], w[k][2], w[k][3]);
+          (kShard ? ((static_cast<int64_t>(k) * (a.r1 - a.r0) + y - a.r0) *
+                         a.w + x) * kBytes
+                  : (((static_cast<int64_t>(f) * kComps + k) * a.h + y) *
+                         a.w + x) * kBytes)) =
+          make_uint4(w[k][0], w[k][1], w[k][2], w[k][3]);
   }
 }
 
 // kFinal: level 0, one CTA a frame's tile over its kComps components, the
 // finish folded into the copy-out; else one CTA a plane's tile (kComps 1).
-// kVec: 16-byte loads of the band rows, else a word at a time.
-template <bool kLossy, int kComps, bool kFinal, bool kVec>
+// kVec: 16-byte loads of the band rows, else a word at a time. kShard: the
+// shard mode (dwt_common.cuh), an image's band rows in, rows r0 .. r1 out.
+template <bool kLossy, int kComps, bool kFinal, bool kVec, bool kShard>
 __global__ void __launch_bounds__(kRevThreads, kComps == 1 ? 4 : 2)
 dwt_reverse_kernel(const RevArgs a) {
   using V = typename Tile<kLossy>::V;
@@ -269,7 +298,9 @@ dwt_reverse_kernel(const RevArgs a) {
   auto tile = [&](int k) -> V* {
     return k == kComps - 1 ? S : Tx + k * kTile * kPitchT;
   };
-  const int y0 = blockIdx.y * kTile, x0 = blockIdx.x * kTile;
+  // shard mode: the tiles start at the shard's first row r0 (even)
+  const int y0 = kShard ? a.r0 + blockIdx.y * kTile : blockIdx.y * kTile;
+  const int x0 = blockIdx.x * kTile;
   const int t = threadIdx.x;
   const int f = kFinal ? blockIdx.z : blockIdx.z % a.batch;
   const int h2 = a.h >> 1, w2 = a.w >> 1;
@@ -285,7 +316,7 @@ dwt_reverse_kernel(const RevArgs a) {
     // load (Loader): with kVec a thread issues all its 16-byte loads
     // before it converts any, else it reads its chunks a word at a time
     if (t < kLoadThreads) {
-      const Loader<kLossy> L(a, blocks, p, t, x0);
+      const Loader<kLossy, kShard> L(a, blocks, p, t, x0);
       const int r0 = t / kLoadLanes;
       const int yb = (y0 >> 1) - H / 2 + (r0 >> 1);  // band row of r0
       V* dst = S + r0 * kPitchS + L.dx * kStageCols + kWords * L.q -
@@ -305,8 +336,14 @@ dwt_reverse_kernel(const RevArgs a) {
         for (int i = 0; i < kPasses; ++i) {
           const int y = yb + kLoadRows / 2 * i;
           u[i] = make_uint4(0, 0, 0, 0);
-          if (r0 + kLoadRows * i < kRows && x_in && y >= 0 && y < h2)
-            u[i] = __ldg(reinterpret_cast<const uint4*>(L.at(a, y, 0)));
+          if constexpr (kShard) {       // the buffer's band rows
+            if (r0 + kLoadRows * i < kRows && x_in && y >= a.in0 &&
+                y < a.in1)
+              u[i] = __ldg(reinterpret_cast<const uint4*>(L.at(a, y, 0)));
+          } else {
+            if (r0 + kLoadRows * i < kRows && x_in && y >= 0 && y < h2)
+              u[i] = __ldg(reinterpret_cast<const uint4*>(L.at(a, y, 0)));
+          }
         }
 #pragma unroll
         for (int i = 0; i < kPasses; ++i)
@@ -318,10 +355,16 @@ dwt_reverse_kernel(const RevArgs a) {
           const int y = yb + kLoadRows / 2 * i;
           uint32_t w[kWords];
 #pragma unroll
-          for (int e = 0; e < kWords; ++e)
-            w[e] = y >= 0 && y < h2 && L.x + e >= 0 && L.x + e < w2
-                       ? __ldg(L.at(a, y, e))
-                       : 0u;
+          for (int e = 0; e < kWords; ++e) {
+            if constexpr (kShard)       // the buffer's band rows
+              w[e] = y >= a.in0 && y < a.in1 && L.x + e >= 0 && L.x + e < w2
+                         ? __ldg(L.at(a, y, e))
+                         : 0u;
+            else
+              w[e] = y >= 0 && y < h2 && L.x + e >= 0 && L.x + e < w2
+                         ? __ldg(L.at(a, y, e))
+                         : 0u;
+          }
           put(i, w);
         }
       }
@@ -353,7 +396,7 @@ dwt_reverse_kernel(const RevArgs a) {
     if (t < kStrips * kTile) {
       const int c = t % kTile, s = t / kTile;
       const int g0 = y0 + kStrip * s - H;
-      if (g0 + H < a.h && x0 + c < a.w) {
+      if (g0 + H < row_end<kShard>(a) && x0 + c < a.w) {
         V v[N];
 #pragma unroll
         for (int i = 0; i < N; ++i) v[i] = B[(kStrip * s + i) * kPitchB + c];
@@ -373,17 +416,20 @@ dwt_reverse_kernel(const RevArgs a) {
   // copy-out
   if constexpr (kFinal) {
     if (a.type == kU8 || a.type == kI8)
-      put_samples<kLossy, kComps, 1>(a, tile, f, y0, x0);
+      put_samples<kLossy, kComps, 1, kShard>(a, tile, f, y0, x0);
     else
-      put_samples<kLossy, kComps, 2>(a, tile, f, y0, x0);
+      put_samples<kLossy, kComps, 2, kShard>(a, tile, f, y0, x0);
   } else {
     // a tile row of the next level's LL plane as 16 chunks of 4 values
+    // (shard mode: the rows from r0 of component blockIdx.z)
     V* out = static_cast<V*>(a.out) +
-             static_cast<int64_t>(blockIdx.z) * a.h * a.w;
+             (kShard ? static_cast<int64_t>(blockIdx.z) * (a.r1 - a.r0) * a.w
+                     - static_cast<int64_t>(a.r0) * a.w
+                     : static_cast<int64_t>(blockIdx.z) * a.h * a.w);
     constexpr int kChunks = kTile / kWords;
     for (int it = t; it < kTile * kChunks; it += kRevThreads) {
       const int r = it / kChunks, x = x0 + kWords * (it % kChunks);
-      if (y0 + r >= a.h || x >= a.w) continue;
+      if (y0 + r >= row_end<kShard>(a) || x >= a.w) continue;
       const V* src = S + r * kPitchT + x - x0;
       V* dst = out + static_cast<int64_t>(y0 + r) * a.w + x;
       if ((a.w & 3) == 0) {
@@ -399,10 +445,10 @@ dwt_reverse_kernel(const RevArgs a) {
 
 // Launches one variant with its dynamic shared memory; above the default
 // 48 KB (RGB at level 0) the limit is raised first, once a device.
-template <bool kLossy, int kComps, bool kFinal, bool kVec>
+template <bool kLossy, int kComps, bool kFinal, bool kVec, bool kShard = false>
 cudaError_t launch(const RevArgs& a, dim3 grid, cudaStream_t s) {
   constexpr int bytes = smem_bytes<kLossy, kComps>();
-  auto* kernel = dwt_reverse_kernel<kLossy, kComps, kFinal, kVec>;
+  auto* kernel = dwt_reverse_kernel<kLossy, kComps, kFinal, kVec, kShard>;
   if constexpr (bytes > 48 * 1024) {
     static std::atomic<unsigned long long> raised{0};  // a bit a device
     int dev = 0;
@@ -428,6 +474,18 @@ cudaError_t launch_level(const RevArgs& a, int level, int planes,
   if (level) return launch<kLossy, 1, false, kVec>(a, grid, s);
   if (a.comps == 3) return launch<kLossy, 3, true, kVec>(a, grid, s);
   return launch<kLossy, 1, true, kVec>(a, grid, s);
+}
+
+// The shard mode's launch: the rows [r0, r1), the finish at level 0 when
+// `with_finish`.
+template <bool kLossy, bool kVec>
+cudaError_t launch_shard(const RevArgs& a, bool with_finish, cudaStream_t s) {
+  const dim3 grid((a.w + kTile - 1) / kTile,
+                  (a.r1 - a.r0 + kTile - 1) / kTile,
+                  static_cast<unsigned>(with_finish ? 1 : a.comps));
+  if (!with_finish) return launch<kLossy, 1, false, kVec, true>(a, grid, s);
+  if (a.comps == 3) return launch<kLossy, 3, true, kVec, true>(a, grid, s);
+  return launch<kLossy, 1, true, kVec, true>(a, grid, s);
 }
 
 }  // namespace
@@ -481,4 +539,50 @@ extern "C" int picsong_dwt_reverse(const int32_t* b0, const int32_t* b1,
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return 0;
+}
+
+// X4's shard mode: one launch of level `level` of one image's `comps`
+// planes (h x w, the level's plane) on `stream`, rebuilding and storing
+// the plane rows [r0, r1) (even) from the band rows [in0, in1) (the
+// shard's and its halo, clipped at the band) of LL, HL, LH and HH, each
+// (comps, in1 - in0, w / 2): LL as values' bits above the deepest level,
+// else quantized (dequantized here for 9/7). Writes (comps, r1 - r0, w)
+// int32 / float values to `out`, or with `with_finish` (level 0) the finish's
+// samples of `type`. `vec`: the wrapper's check that the bands' bases are
+// multiples of 16 bytes (used where w / 2 is a multiple of 4). Returns
+// the launch's cudaError_t, or 0.
+extern "C" int picsong_dwt_reverse_shard(
+    const void* ll, const void* hl, const void* lh, const void* hh, int vec,
+    int comps, int h, int w, int level, int levels, int lossy, int with_finish,
+    int offset, int lo, int hi, int type, const float* consts, int in0,
+    int in1, int r0, int r1, void* out, void* stream) {
+  using namespace picsong::dwt;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  RevArgs a = {};
+  a.band[0] = ll;
+  a.band[1] = hl;
+  a.band[2] = lh;
+  a.band[3] = hh;
+  a.out = out;
+  a.batch = 1;
+  a.comps = comps;
+  a.h = h;
+  a.w = w;
+  a.deepest = level == levels - 1;
+  a.offset = offset;
+  a.lo = lo;
+  a.hi = hi;
+  a.type = type;
+  a.in0 = in0;
+  a.in1 = in1;
+  a.r0 = r0;
+  a.r1 = r1;
+  a.c = level_consts(consts, level);
+  const bool v = vec && ((w >> 1) & 3) == 0;
+  const cudaError_t err =
+      lossy ? (v ? launch_shard<true, true>(a, with_finish != 0, s)
+                 : launch_shard<true, false>(a, with_finish != 0, s))
+            : (v ? launch_shard<false, true>(a, with_finish != 0, s)
+                 : launch_shard<false, false>(a, with_finish != 0, s));
+  return static_cast<int>(err);
 }

@@ -5,41 +5,41 @@ video (`FrameParallelCodec`).
 Counterpart of `picsong_tpu.dist.sharded`. There, GSPMD partitions one
 program over a device mesh and inserts the halo exchanges and all-to-alls
 itself (`sharded.py:84-97, 118-135`); here every exchange is an explicit
-copy between shards, and each shard runs the single-device port's own
-steps (`dwt_cuda.prep` / `finish`, the lifting steps of
-`transform/dwt.py`, the BPC kernels of `entropy/bpc_cuda.py` on its own
-device). The transforms stay torch ops here: the X2/X4 kernels
-(`transform/dwt_cuda.py`) lift whole planes, and a shard's lifting needs
-its neighbours' halo rows between the vertical and horizontal passes;
-feeding those halos to the kernels is the next step (ROADMAP queue 2).
+copy between shards, and each shard runs the single-device port's
+kernels on its own device: the shard mode of X2 / X4
+(`transform/dwt_cuda.py` `forward_shard` / `reverse_shard`, one launch a
+shard and level for all the components, the prep and the finish fused as
+on one device; the torch-op plain version on the CPU), the BPC kernels of
+`entropy/bpc_cuda.py` and X3's pack and unpack.
 
 The bytes are the contract, as in the JAX package (`sharded.py:21-22`):
 every sharded codestream is byte-identical to the single-device port's,
 and so to `TPUCodec`'s and the oracle's.
 
-Row-sharded image, one component (the others alike):
+Row-sharded image (an RGB image's three components go together):
 
 - *Row split.* Shard boundaries fall on multiples of max(64, 2**wl) rows
   of the adapted plane, so that every level splits on even rows; the
   units are shared out in contiguous, balanced spans, so a 1088-row plane
   (17 codeblock rows) splits 5/4/4/4 over 4 shards, and shards past the
   last unit hold no rows.
-- *Prep.* Each shard uploads its rows of the mirror-padded samples and
-  runs `dwt_cuda.prep` on them (DC shift, RCT or ICT: all within a
-  pixel).
+- *Upload.* Each shard uploads its rows of the mirror-padded samples.
 - *Lifting with halos.* Each level's vertical pass reads neighbouring
-  rows. A shard extends its rows with a halo of its neighbours' (2 rows
-  above and below for 5/3, 4 for 9/7; none at the plane's true top and
-  bottom, where `_nxt` / `_prv` replicate as on one device), runs the
-  vertical lifting of `transform/dwt.py` on the extended rows and keeps
-  its interior; the horizontal pass and the quantization stay in a row.
-  The inverse exchanges the same halo (in rows of the low and high
-  halves) between the horizontal and the vertical synthesis.
+  rows. A shard extends its input rows (the samples at level 0, where X2
+  runs the prep on them: DC shift, RCT or ICT, all within a pixel) with a
+  halo of its neighbours' (2 rows above and below for 5/3, 4 for 9/7;
+  none at the plane's true top and bottom, where the edge rule applies as
+  on one device) and runs `forward_shard`, which keeps its interior's
+  band rows. The inverse reads its neighbours' band rows before the level
+  (1 row a side for 5/3, 2 for 9/7, clipped at the plane) and runs
+  `reverse_shard`, which re-lifts those halo rows itself and keeps its
+  interior rows (at level 0 the finish's samples).
 - *Deep levels.* Rule: from the first level at which a shard holds no
   more LL rows than the halo (a 256-row plane at wl=5 over 4 shards
   enters level 5 with 4 rows a shard, the 9/7 halo), the whole LL is
   gathered onto the first shard, which runs the remaining levels alone;
-  the inverse runs those levels there and scatters the LL back.
+  the inverse runs those levels there, and the shards read their rows of
+  its output back.
 - *Tiling.* The codeblocks (64x64 tiles of the Mallat mosaic in warpID
   order) are shared out in contiguous, balanced spans of that order. A
   codeblock of level >= 1 holds rows that several shards computed, so
@@ -47,8 +47,9 @@ Row-sharded image, one component (the others alike):
   pieces of every shard (device-to-device copies) and tiles them. Decode
   is the mirror: each shard gathers the subband rows it needs from the
   decoded blocks of every shard.
-- *Plane count.* The max over the shards' coefficient maxima: one read,
-  as `TorchCodec.encode_planes` has.
+- *Plane count.* The max over the shards' X2 coefficient maxima (each
+  shard's taken over its levels): one read, as `TorchCodec.encode_planes`
+  has.
 - *Pack.* Each shard packs its own blocks on its device
   (`pack.pack_streams`) and downloads only the packed shorts; the host
   joins the shares into the codestream with `pack.join_frames`, and
@@ -136,24 +137,27 @@ def shares(n: int, parts: int) -> list[tuple[int, int]]:
 def _assemble(pieces, r0: int, r1: int, c0: int, c1: int,
               device: torch.device) -> torch.Tensor:
     """The [r0, r1) x [c0, c1) window of a plane held as `pieces`, a list
-    of (row, column, tensor) rectangles that tile it, on `device`: each
-    piece's overlap is copied in, across devices where it lies elsewhere."""
-    out = torch.empty((r1 - r0, c1 - c0), dtype=pieces[0][2].dtype,
-                      device=device)
+    of (row, column, (..., rows, columns) tensor) rectangles that tile it,
+    on `device`: each piece's overlap is copied in, across devices where it
+    lies elsewhere."""
+    first = pieces[0][2]
+    out = torch.empty((*first.shape[:-2], r1 - r0, c1 - c0),
+                      dtype=first.dtype, device=device)
     for pr, pc, t in pieces:
         h, w = t.shape[-2:]
         a, b = max(r0, pr), min(r1, pr + h)
         c, d = max(c0, pc), min(c1, pc + w)
         if a < b and c < d:
-            out[a - r0:b - r0, c - c0:d - c0].copy_(
-                t[a - pr:b - pr, c - pc:d - pc])
+            out[..., a - r0:b - r0, c - c0:d - c0].copy_(
+                t[..., a - pr:b - pr, c - pc:d - pc])
     return out
 
 
 def _extend(parts: list[tuple[torch.Tensor, ...]], k: int):
-    """Each part (a tuple of row-aligned tensors on one device, in plane
-    order) with `k` rows of its neighbours above and below, none at the
-    plane's top and bottom -> [(extended tuple, rows above, rows below)]."""
+    """Each part (a tuple of row-aligned (..., rows, columns) tensors on
+    one device, in plane order) with `k` rows of its neighbours above and
+    below, none at the plane's top and bottom -> [(extended tuple, rows
+    above)]."""
     out = []
     for i, part in enumerate(parts):
         top = k if i > 0 else 0
@@ -162,11 +166,11 @@ def _extend(parts: list[tuple[torch.Tensor, ...]], k: int):
         for j, t in enumerate(part):
             rows = [t]
             if top:
-                rows.insert(0, parts[i - 1][j][-k:].to(t.device))
+                rows.insert(0, parts[i - 1][j][..., -k:, :].to(t.device))
             if bottom:
-                rows.append(parts[i + 1][j][:k].to(t.device))
-            ext.append(torch.cat(rows) if len(rows) > 1 else t)
-        out.append((tuple(ext), top, bottom))
+                rows.append(parts[i + 1][j][..., :k, :].to(t.device))
+            ext.append(torch.cat(rows, dim=-2) if len(rows) > 1 else t)
+        out.append((tuple(ext), top))
     return out
 
 
@@ -227,108 +231,94 @@ class ShardedCodec:
 
     # -- the sharded device steps -----------------------------------------
 
-    def _forward(self, parts: list[torch.Tensor]) -> list[tuple]:
-        """One component's rows on the level-0 spans (DC-shifted, float32
-        for 9/7) -> its quantized subbands as (row, column, int32 tensor)
-        pieces of the Mallat mosaic, on the shards that computed them."""
-        cfg, lossy = self.cfg, self.cfg.is_lossy
-        levels = cfg.wavelet_levels
-        pieces = []
-        cur, rows = parts, [r0 for _, r0, _ in self._plan[0]]
+    def _forward(self, parts: list[list[torch.Tensor]]):
+        """Per level-0 span its rows of the component planes (the sample
+        planes, or one DC-shifted int32 / float32 plane) -> (the quantized
+        subbands as (row, column, (comps, rows, columns) int32 tensor)
+        pieces of the Mallat mosaic, on the shards that computed them; per
+        shard that ran a level, the maximum magnitude over its levels)."""
+        cfg = self.cfg
+        pieces, tops = [], {}
+        cur = [tuple(p) for p in parts]     # per span: its input planes
+        rows = [r0 for _, r0, _ in self._plan[0]]
         for level, spans in enumerate(self._plan):
-            if len(spans) < len(cur):           # the deep-level gather
-                cur = [_assemble([(r, 0, t) for r, t in zip(rows, cur)], 0,
-                                 self.ah >> level, 0, self.aw >> level,
-                                 self.devices[spans[0][0]])]
             h2, w2 = self.ah >> (level + 1), self.aw >> (level + 1)
+            if len(spans) < len(cur):           # the deep-level gather
+                cur = [(_assemble([(r, 0, t) for r, (t,) in zip(rows, cur)],
+                                  0, 2 * h2, 0, 2 * w2,
+                                  self.devices[spans[0][0]]),)]
             nxt = []
-            for ((x,), top, bottom), (_, r0, _) in zip(
-                    _extend([(t,) for t in cur], self._halo), spans):
-                lo, hi = dwt.lift_vertical(x, lossy)
-                a, b = top // 2, (x.shape[-2] - bottom) // 2
-                ll, hl, lh, hh = dwt.lift_horizontal(lo[a:b], hi[a:b], lossy)
-                if lossy:
-                    ll, hl, lh, hh = dwt.quantize_level(ll, hl, lh, hh, level,
-                                                        levels, cfg.qs)
+            for (x, top), (s, r0, r1) in zip(_extend(cur, self._halo),
+                                             spans):
+                planes = list(x) if level == 0 else list(x[0].unbind(0))
+                (ll, hl, lh, hh), tops[s] = dwt_cuda.forward_shard(
+                    planes, cfg, level, r0 - top, r0, r1, tops.get(s))
                 r = r0 // 2
                 pieces += [(r, w2, hl), (h2 + r, 0, lh), (h2 + r, w2, hh)]
-                nxt.append(ll)
+                nxt.append((ll,))
             cur, rows = nxt, [r0 // 2 for _, r0, _ in spans]
-        pieces += [(r, 0, t) for r, t in zip(rows, cur)]
-        return [(r, c, t.to(torch.int32)) for r, c, t in pieces]
+        pieces += [(r, 0, t) for r, (t,) in zip(rows, cur)]
+        return pieces, list(tops.values())
 
     def _tile(self, pieces) -> list[torch.Tensor]:
-        """Subband pieces -> each codeblock shard's (n, 64, 64) blocks: the
-        mosaic rows of its blocks gathered onto its device and tiled."""
+        """Subband pieces -> each codeblock shard's (comps, n, 64, 64)
+        blocks: the mosaic rows of its blocks gathered onto its device and
+        tiled."""
         bx = self.aw // _CB
         out = []
         for s, b0, b1 in self.blocks:
             y0, y1 = b0 // bx, -(-b1 // bx)
             slab = _assemble(pieces, y0 * _CB, y1 * _CB, 0, self.aw,
                              self.devices[s])
-            out.append(plane_to_codeblocks(slab)[b0 - y0 * bx:b1 - y0 * bx]
-                       .contiguous())
+            out.append(plane_to_codeblocks(slab)[
+                :, b0 - y0 * bx:b1 - y0 * bx].contiguous())
         return out
 
     def _untile(self, blocks: list[torch.Tensor]) -> list[tuple]:
-        """Each codeblock shard's decoded blocks -> (row, column, tensor)
-        pieces of the mosaic: a partial first block row, the whole rows,
-        a partial last row."""
+        """Each codeblock shard's decoded (comps, n, 64, 64) blocks ->
+        (row, column, (comps, rows, columns) tensor) pieces of the mosaic: a
+        partial first block row, the whole rows, a partial last row."""
         bx = self.aw // _CB
         pieces = []
         for (_, b0, b1), t in zip(self.blocks, blocks):
+            nc = t.shape[0]
             i = b0
             while i < b1:
                 y, x = divmod(i, bx)
                 if x or b1 - i < bx:            # a partial block row
                     j = min(b1, (y + 1) * bx)
-                    pieces.append((y * _CB, x * _CB, t[i - b0:j - b0]
-                                   .transpose(0, 1).reshape(_CB, -1)))
+                    pieces.append((y * _CB, x * _CB, t[:, i - b0:j - b0]
+                                   .transpose(1, 2).reshape(nc, _CB, -1)))
                 else:                           # whole block rows
                     j = i + (b1 - i) // bx * bx
                     pieces.append((y * _CB, 0, codeblocks_to_plane(
-                        t[i - b0:j - b0], (j - i) // bx * _CB, self.aw)))
+                        t[:, i - b0:j - b0], (j - i) // bx * _CB, self.aw)))
                 i = j
         return pieces
 
-    def _inverse(self, pieces) -> list[torch.Tensor]:
-        """Mosaic pieces of one component -> its reconstructed rows on the
-        level-0 spans (int32 for 5/3, float32 for 9/7)."""
-        cfg, lossy = self.cfg, self.cfg.is_lossy
-        levels = cfg.wavelet_levels
-        cur = rows = None
-        for level in range(levels - 1, -1, -1):
-            spans = self._plan[level]
+    def _inverse(self, pieces, to_samples: bool = True) -> list[torch.Tensor]:
+        """Mosaic pieces of the components -> per level-0 span its
+        (comps, rows, aw) rows: the finish's samples, or without
+        `to_samples` the reconstructed plane (int32 for 5/3, float32 for
+        9/7). Each shard reads its band rows and its neighbours' halo, HALO
+        / 2 band rows a side, before the level."""
+        k = self._halo // 2
+        ll_pieces = pieces          # the deepest LL: the mosaic's corner
+        for level in range(self.cfg.wavelet_levels - 1, -1, -1):
             h2, w2 = self.ah >> (level + 1), self.aw >> (level + 1)
-            half = [(s, r0 // 2, r1 // 2) for s, r0, r1 in spans]
-            if cur is None:                     # the deepest LL
-                cur = [_assemble(pieces, r0, r1, 0, w2, self.devices[s])
-                       for s, r0, r1 in half]
-                if lossy:
-                    cur = [dwt.dequantize(t, level, spec.QS_LL, cfg.qs)
-                           for t in cur]
-            elif len(cur) < len(spans):         # scatter after the gather
-                src = [(r, 0, t) for r, t in zip(rows, cur)]
-                cur = [_assemble(src, r0, r1, 0, w2, self.devices[s])
-                       for s, r0, r1 in half]
-            halves = []
-            for ll, (s, r0, r1) in zip(cur, half):
+            out = []
+            for s, r0, r1 in self._plan[level]:
                 dev = self.devices[s]
-                hl = _assemble(pieces, r0, r1, w2, 2 * w2, dev)
-                lh = _assemble(pieces, h2 + r0, h2 + r1, 0, w2, dev)
-                hh = _assemble(pieces, h2 + r0, h2 + r1, w2, 2 * w2, dev)
-                if lossy:
-                    hl, lh, hh = (dwt.dequantize(b, level, band, cfg.qs)
-                                  for b, band in ((hl, spec.QS_HL),
-                                                  (lh, spec.QS_LH),
-                                                  (hh, spec.QS_HH)))
-                halves.append(dwt.unlift_horizontal(ll, hl, lh, hh, lossy))
-            cur = []
-            for (lo, hi), top, bottom in _extend(halves, self._halo // 2):
-                x = dwt.unlift_vertical(lo, hi, lossy)
-                cur.append(x[2 * top:x.shape[-2] - 2 * bottom])
-            rows = [r0 for _, r0, _ in spans]
-        return cur
+                b0, b1 = max(r0 // 2 - k, 0), min(r1 // 2 + k, h2)
+                bands = (_assemble(ll_pieces, b0, b1, 0, w2, dev),
+                         _assemble(pieces, b0, b1, w2, 2 * w2, dev),
+                         _assemble(pieces, h2 + b0, h2 + b1, 0, w2, dev),
+                         _assemble(pieces, h2 + b0, h2 + b1, w2, 2 * w2,
+                                   dev))
+                out.append((r0, dwt_cuda.reverse_shard(
+                    bands, self.cfg, level, b0, r0, r1, to_samples)))
+            ll_pieces = [(r, 0, t) for r, t in out]
+        return [t for _, t in out]
 
     def _bpc_args(self, shard: int, component: int):
         luts = self._codec(shard).luts
@@ -346,11 +336,11 @@ class ShardedCodec:
                                        **self._kw, n_planes=n_planes)
                 for (s, _, _), (st, z) in zip(self.blocks, coded)]
 
-    def _n_planes(self, blocks) -> int:
-        """The bitplane count of all these blocks: one read of the max over
-        the shards' maxima."""
+    def _n_planes(self, tops) -> int:
+        """The bitplane count from the shards' coefficient maxima (0-dim
+        tensors): one read of their max."""
         first = self.devices[self.blocks[0][0]]
-        top = torch.stack([b.abs().amax().to(first) for b in blocks]).amax()
+        top = torch.stack([t.to(first) for t in tops]).amax()
         return bpc.planes_for_magnitude(int(top))
 
     def _upload_rows(self, plane: np.ndarray) -> list[torch.Tensor]:
@@ -364,10 +354,11 @@ class ShardedCodec:
         """One DC-shifted (ah, aw) component plane on the host (int32, or
         float32 for 9/7) -> ((ncb, 4096) int32 streams, (ncb,) sizes) on
         the host. n_planes None reads the coefficient maximum."""
-        blocks = self._tile(self._forward(self._upload_rows(
-            np.asarray(plane_shifted))))
+        pieces, tops = self._forward([[t] for t in self._upload_rows(
+            np.asarray(plane_shifted))])
+        blocks = [b[0] for b in self._tile(pieces)]
         if n_planes is None:
-            n_planes = self._n_planes(blocks)
+            n_planes = self._n_planes(tops)
         coded = self._encode_blocks(blocks, n_planes, lut_index)
         return (np.concatenate([st.cpu().numpy() for st, _ in coded]),
                 np.concatenate([z.cpu().numpy() for _, z in coded]))
@@ -381,9 +372,10 @@ class ShardedCodec:
         coded = [(torch.from_numpy(streams[b0:b1]).to(self.devices[s]),
                   torch.from_numpy(sizes[b0:b1]).to(self.devices[s]))
                  for s, b0, b1 in self.blocks]
-        rows = self._inverse(self._untile(self._decode_blocks(
-            coded, n_planes, lut_index)))
-        return np.concatenate([r.cpu().numpy() for r in rows])
+        rows = self._inverse(self._untile(
+            [b[None] for b in self._decode_blocks(coded, n_planes,
+                                                  lut_index)]), False)
+        return np.concatenate([r[0].cpu().numpy() for r in rows])
 
     def upload(self, pixels) -> list[list[torch.Tensor]]:
         """(height, width) samples (gray) or [R, G, B] planes on the host ->
@@ -399,32 +391,36 @@ class ShardedCodec:
         return [[p[k] for p in padded] for k in range(len(self._plan[0]))]
 
     def tile_planes(self, samples: list[list[torch.Tensor]]):
-        """Prep, the sharded DWT and the tiling: `upload`'s rows -> per
-        component, each codeblock shard's (n, 64, 64) int32 codeblocks on
-        its device."""
-        comps = [dwt_cuda.prep(rows, self.cfg) for rows in samples]
-        return [self._tile(self._forward([c[i] for c in comps]))
-                for i in range(self.n_components)]
+        """The sharded X2 (prep, DWT, quantization) and the tiling:
+        `upload`'s rows -> (per component, each codeblock shard's (n, 64,
+        64) int32 codeblocks on its device; the shards' coefficient
+        maxima)."""
+        pieces, tops = self._forward(samples)
+        blocks = self._tile(pieces)
+        return ([[b[i] for b in blocks] for i in range(self.n_components)],
+                tops)
 
     def encode_planes(self, samples: list[list[torch.Tensor]]):
         """Device half of encode (`TorchCodec.encode_planes` sharded):
         `upload`'s rows -> (per component, each codeblock shard's
         (streams, sizes) on its device; n_planes). Reads one scalar, the
         coefficient maximum over all shards and components."""
-        blocks = self.tile_planes(samples)
-        n_planes = self._n_planes([b for comp in blocks for b in comp])
+        blocks, tops = self.tile_planes(samples)
+        n_planes = self._n_planes(tops)
         return ([self._encode_blocks(comp, n_planes, i)
                  for i, comp in enumerate(blocks)], n_planes)
 
     def decode_planes(self, coded) -> list[list[torch.Tensor]]:
         """Device half of decode: per component (each codeblock shard's
         (streams, int32 sizes) on its device, n_planes) -> per level-0
-        span, its rows of the sample planes (one gray or [R, G, B])."""
-        comps = [self._inverse(self._untile(self._decode_blocks(
-            shards, n_planes, i)))
-            for i, (shards, n_planes) in enumerate(coded)]
-        return [dwt_cuda.finish([c[k] for c in comps], self.cfg)
-                for k in range(len(self._plan[0]))]
+        span, its rows of the sample planes (one gray or [R, G, B]): the
+        sharded X4 (dequantization, inverse DWT, finish)."""
+        comps = [self._decode_blocks(shards, n_planes, i)
+                 for i, (shards, n_planes) in enumerate(coded)]
+        blocks = [torch.stack(c) if len(c) > 1 else c[0][None]
+                  for c in zip(*comps)]
+        return [list(t.unbind(0))
+                for t in self._inverse(self._untile(blocks))]
 
     def encode(self, pixels) -> list[np.ndarray]:
         """(height, width) samples (gray) or [R, G, B] planes -> one packed

@@ -54,6 +54,14 @@ _SIGNATURES = {
     # b0, b1, b2, vec, batch, comps, h, w, levels, lossy, offset, lo, hi,
     # type, consts, scratch, out, stream
     "picsong_dwt_reverse": [_P, _P, _P, *[_I] * 11, _P, _P, _P, _P],
+    # s0, s1, s2, type, vec, row_stride, comps, h, w, level, levels, lossy,
+    # offset, in0, in1, r0, r1, consts, bands, top, stream
+    "picsong_dwt_forward_shard": [_P, _P, _P, _I, _I, _L, *[_I] * 11, _P, _P,
+                                  _P, _P],
+    # ll, hl, lh, hh, vec, comps, h, w, level, levels, lossy, with_finish,
+    # offset, lo, hi, type, consts, in0, in1, r0, r1, out, stream
+    "picsong_dwt_reverse_shard": [*[_P] * 4, *[_I] * 12, _P, *[_I] * 4, _P,
+                                  _P],
     # streams, sizes, n, header (host, or null), capacity, status, out,
     # stream
     "picsong_pack": [_P, _P, _I, _P, _L, _P, _P, _P],

@@ -6,6 +6,8 @@ checkout's, on one card, in one process.
     python -m picsong_tpu_torch.tools.kernel_ab --other DIR --layers
     python -m picsong_tpu_torch.tools.kernel_ab [--other DIR] --split
     python -m picsong_tpu_torch.tools.kernel_ab --other DIR --pack
+    python -m picsong_tpu_torch.tools.kernel_ab --other DIR --sharded
+    python -m picsong_tpu_torch.tools.kernel_ab --other DIR --sass
 
 DIR is the root of another checkout (a `git archive` of the parent
 commit, say); its `picsong_tpu_torch/csrc` is built into `DIR/build/ab`.
@@ -60,6 +62,25 @@ the host time of each part of one call of this tree's `pack_streams` and
 stream, the ctypes launch, the error check; each part run alone
 `SPLIT_REPS` times back to back, median of 5), beside the whole call's
 and the other tree's whole call; one JSON line per part.
+
+`--sharded` instead times the row-sharded path (`dist/sharded.py`
+`ShardedCodec`, every shard on the one card), this tree's and the
+other's, each through its own package, in the LAYER_TURNS: the device
+encode and decode (`encode_planes` / `decode_planes`, host clock with a
+synchronize, ten a turn) of the 2048^2 wl=5 lossless main-path image
+unsharded (`TorchCodec`) and on SHARDED_COUNTS shards of one card (and,
+where several cards are visible, on as many cards as shards), and the
+CLI round trip unsharded and with `-sharded 2`. Both trees' streams, sizes, decoded
+samples and files must be byte-equal (and the decode bit-exact). One JSON
+line per (shards, layer).
+
+`--sass` instead compiles both trees' `csrc/dwt_forward.cu` and
+`dwt_reverse.cu` to cubins (nvcc with the package's flags) and compares
+the SASS of X2's and X4's whole-plane variants instruction by
+instruction (`cuobjdump -sass`, addresses and encodings dropped): this
+tree's variants with kShard false against the other tree's of the same
+other template arguments. One JSON line per kernel: the variants, how
+many are the same, and the first differing instruction of each other.
 """
 
 from __future__ import annotations
@@ -90,6 +111,8 @@ SPLIT_LEVELS = 5
 PACK_SHAPES = (("2048^2", 2048, 2048, 0), ("(8, 1088, 1920)", 1080, 1920, 8),
                ("8192^2", 8192, 8192, 0))
 SPLIT_REPS = 200
+# the row-sharded path's shard counts on one card (`--sharded`)
+SHARDED_COUNTS = (2, 4)
 
 
 def _times(fn, per: int = BATCH) -> list[float]:
@@ -110,14 +133,20 @@ def _times(fn, per: int = BATCH) -> list[float]:
 
 
 def _host_times(fn) -> list[float]:
+    """Host-clock times of `fn`, each between synchronisations of every
+    visible card."""
     import torch
+
+    def sync():
+        for d in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(d)
     fn()
     out = []
     for _ in range(ITERS):
-        torch.cuda.synchronize()
+        sync()
         t = time.perf_counter()
         fn()
-        torch.cuda.synchronize()
+        sync()
         out.append((time.perf_counter() - t) * 1e3)
     return out
 
@@ -567,6 +596,175 @@ def _pack(other_root: str, card: str) -> int:
     return 0
 
 
+def _sharded(other_root: str, card: str) -> int:
+    """Both trees' row-sharded device encode / decode and CLI round trips
+    at 2048^2 wl=5 lossless, unsharded and sharded, in turns."""
+    import numpy as np
+    import torch
+
+    from ..core.image_io import write_pgm
+    from ..engine import cli
+    from . import goldens
+
+    _other_package(other_root)
+    trees = {t: {m: importlib.import_module(f"{pkg}.{m}")
+                 for m in ("dist.sharded", "engine.pipeline", "engine.cli",
+                           "core.header")}
+             for t, pkg in (("other", "ab_other"),
+                            ("this", "picsong_tpu_torch"))}
+    dev = torch.device("cuda")
+    size = 2048
+    img = goldens.make_image(size)
+    luts, params = cli._load_luts("neutral", 5, 2, 0.0)
+    tmp = tempfile.TemporaryDirectory()
+    src = os.path.join(tmp.name, "in.pgm")
+    write_pgm(src, img)
+
+    def same(a, b) -> bool:
+        if isinstance(a, torch.Tensor):
+            return torch.equal(a, b)
+        if isinstance(a, (list, tuple)):
+            return len(a) == len(b) and all(same(x, y) for x, y in zip(a, b))
+        return a == b
+
+    cards = torch.cuda.device_count()
+    configs = [(n, [dev] * n) for n in (1, *SHARDED_COUNTS)]
+    configs += [(n, [torch.device("cuda", d) for d in range(n)])
+                for n in SHARDED_COUNTS if n <= cards]
+    for n, devices in configs:
+        name = f"{size}^2 wl=5 lossless, " + (
+            f"{n} shards on {len(set(devices))} card(s)" if n > 1
+            else "unsharded")
+        fns, outs = {}, {}
+        for t, m in trees.items():
+            cfg = m["core.header"].CodecConfig(width=size, height=size,
+                                               wavelet_levels=5)
+            if n == 1:
+                codec = m["engine.pipeline"].TorchCodec(cfg, luts, params,
+                                                        dev)
+                up = [torch.from_numpy(img).to(dev)]
+                coded, n_planes = codec.encode_planes(up)
+                dc = [(s_, z_, n_planes) for s_, z_ in coded]
+            else:
+                codec = m["dist.sharded"].ShardedCodec(cfg, luts, params,
+                                                       devices)
+                up = codec.upload(img)
+                coded, n_planes = codec.encode_planes(up)
+                dc = [(shards, n_planes) for shards in coded]
+            outs[t] = (coded, n_planes, codec.decode_planes(dc))
+            fns[t] = {"device encode": (lambda c=codec, u=up:
+                                        c.encode_planes(u)),
+                      "device decode": (lambda c=codec, d=dc:
+                                        c.decode_planes(d))}
+        if not same(outs["this"], outs["other"]):
+            print(f"kernel_ab: {name}: the trees disagree", file=sys.stderr)
+            return 1
+        for layer in ("device encode", "device decode"):
+            samples_ms = {"other": [], "this": []}
+            for t in LAYER_TURNS:
+                samples_ms[t] += _host_times(fns[t][layer])
+            _print_ab(name, layer, "host clock", samples_ms, card)
+        del fns, outs
+        torch.cuda.empty_cache()
+    for n in (1, 2):
+        shard = ["-sharded", str(n)] if n > 1 else []
+        files = {t: (os.path.join(tmp.name, f"{t}{n}.enc"),
+                     os.path.join(tmp.name, f"{t}{n}.pgm")) for t in trees}
+
+        def round_trip(t, shard=shard, files=files):
+            main = trees[t]["engine.cli"].main
+            enc, dec = files[t]
+
+            def run():
+                with contextlib.redirect_stdout(io.StringIO()):
+                    main(["-cd", "0", "-i", src, "-o", enc, "-wl", "5",
+                          "-LUTFolder", "neutral", *shard])
+                    main(["-cd", "1", "-i", enc, "-o", dec, "-LUTFolder",
+                          "neutral", *shard])
+            return run
+        samples_ms = {"other": [], "this": []}
+        for t in LAYER_TURNS:
+            samples_ms[t] += _host_times(round_trip(t))
+        got = {}
+        for t, (enc, dec) in files.items():
+            got[t] = []
+            for f in (enc, enc + "_SIZE", dec):
+                with open(f, "rb") as fh:
+                    got[t].append(fh.read())
+        if got["this"] != got["other"] or not np.array_equal(
+                np.frombuffer(got["this"][2], np.uint8)[-img.size:],
+                img.ravel()):
+            print(f"kernel_ab: CLI -sharded {n}: the trees' files differ or "
+                  "the round trip is not bit-exact", file=sys.stderr)
+            return 1
+        _print_ab(f"{size}^2 wl=5 lossless"
+                  + (f", -sharded {n}" if n > 1 else ""),
+                  "CLI round trip", "host clock", samples_ms, card)
+    tmp.cleanup()
+    return 0
+
+
+def _sass_of(cubin: str, cuobjdump: str) -> dict:
+    """A cubin's kernels by their template arguments -> their SASS
+    instructions (text without the address and encoding comments)."""
+    text = subprocess.run([cuobjdump, "-sass", cubin], capture_output=True,
+                          text=True, check=True).stdout
+    out, cur = {}, None
+    for line in text.splitlines():
+        if "Function : " in line:
+            name = subprocess.run(
+                ["c++filt", line.split("Function : ")[1].strip()],
+                capture_output=True, text=True, check=True).stdout
+            args = name[name.index("<") + 1:name.index(">")]
+            cur = out.setdefault(tuple(a.strip() for a in args.split(",")),
+                                 [])
+        elif cur is not None and line.strip().startswith("/*") and \
+                ";" in line:
+            cur.append(" ".join(line.split("*/", 1)[1].split(";")[0]
+                                .split()))
+    return out
+
+
+def _sass(other_root: str) -> int:
+    """X2's and X4's whole-plane variants, this tree's against the other's
+    compiled from the same flags."""
+    from .. import kernels
+
+    nvcc = kernels.find_nvcc()
+    cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    flags = [f for f in kernels.NVCC_FLAGS
+             if f not in ("-Xcompiler", "-fPIC", "-Xptxas=-v")]
+    trees = {"this": kernels.CSRC_DIR,
+             "other": os.path.join(other_root, "picsong_tpu_torch", "csrc")}
+    tmp = tempfile.TemporaryDirectory()
+    for name in ("forward", "reverse"):
+        sass = {}
+        for t, csrc in trees.items():
+            cubin = os.path.join(tmp.name, f"{t}_{name}.cubin")
+            subprocess.run([nvcc, *flags, "-cubin", "-o", cubin,
+                            os.path.join(csrc, f"dwt_{name}.cu")],
+                           check=True, capture_output=True)
+            sass[t] = _sass_of(cubin, cuobjdump)
+        same, differing = 0, []
+        for args, code in sorted(sass["this"].items()):
+            if args[-1] != "false":
+                continue                    # a shard-mode variant
+            want = sass["other"].get(args, sass["other"].get(args[:-1]))
+            if want == code:
+                same += 1
+                continue
+            first = next((i for i, (a, b) in enumerate(zip(code, want or []))
+                          if a != b), min(len(code), len(want or [])))
+            differing.append({"variant": list(args), "first": first,
+                              "this": code[first:first + 1],
+                              "other": (want or [])[first:first + 1]})
+        print(json.dumps({"kernel": f"dwt_{name}", "whole_plane_variants":
+                          same + len(differing), "same_sass": same,
+                          "differing": differing}), flush=True)
+    tmp.cleanup()
+    return 0
+
+
 def _print_ab(config, layer, clock, samples, card) -> None:
     print(json.dumps({
         "config": config, "layer": layer, "clock": clock,
@@ -585,6 +783,8 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--layers", action="store_true")
     ap.add_argument("--split", action="store_true")
     ap.add_argument("--pack", action="store_true")
+    ap.add_argument("--sharded", action="store_true")
+    ap.add_argument("--sass", action="store_true")
     args = ap.parse_args(argv)
     if not (args.split or args.other):
         ap.error("--other is required unless --split")
@@ -613,6 +813,10 @@ def main(argv: list[str] | None = None) -> int:
         return _layers(os.path.abspath(args.other), card)
     if args.pack:
         return _pack(os.path.abspath(args.other), card)
+    if args.sharded:
+        return _sharded(os.path.abspath(args.other), card)
+    if args.sass:
+        return _sass(os.path.abspath(args.other))
     other_dir = os.path.join(os.path.abspath(args.other), "build", "ab")
     other_lib, _ = kernels.build(
         build_dir=other_dir,

@@ -149,9 +149,10 @@ def _inv97_h(s: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
 # One level, in the steps a row-sharded plane needs apart: the vertical
 # lifting reads neighbouring rows (`_nxt` / `_prv`), so a shard runs it on
 # its rows plus a halo of its neighbours' and keeps its interior; the
-# horizontal lifting and the (de)quantization stay within a row.
-# `dist/sharded.py` calls these steps; `dwt_forward` / `dwt_reverse` chain
-# them over the whole plane.
+# horizontal lifting and the (de)quantization stay within a row. The
+# plain version of X2's and X4's shard mode (`transform/dwt_cuda.py`
+# `forward_shard_plain` / `reverse_shard_plain`) calls these steps;
+# `dwt_forward` / `dwt_reverse` chain them over the whole plane.
 
 def lift_vertical(plane: torch.Tensor, lossy: bool):
     """Vertical analysis: (..., H, W) -> (low, high) rows, (..., H/2, W)

@@ -18,6 +18,20 @@ shift and clamp to the sample type. Counterpart of `_untile_idwt_impl` +
 `_finish_gray_impl` / `_finish_rgb_impl` (`picsong_tpu/transform/dwt.py:187`
 `dwt_reverse`, `core/geometry.py:57`).
 
+Their shard mode, `forward_shard` / `reverse_shard` (`dist/sharded.py`):
+one level of one shard's rows of a taller plane, the same kernels' kShard
+variants, one launch a call. X2 takes the shard's rows plus the halo rows
+its neighbours lend it (the samples at level 0, with the prep; HALO rows a
+side, none past the plane's top or bottom) and gives the level's four
+bands as row-major band rows of the shard's interior; X4 takes the band
+rows plus HALO / 2 rows a side and gives the interior rows of the next
+level's plane (at level 0 the finish's samples). The edge rule fires only
+at the plane's first and last row; the rows in between are counted from
+the plane's top. Their plain version is the torch-op step of a level
+(`transform/dwt.py` lift_vertical, lift_horizontal, quantize_level /
+dequantize, unlift_horizontal, unlift_vertical) on the buffer, which keeps
+the interior.
+
 Samples are one gray or three RGB (..., ah, aw) planes (ah, aw the
 adapted size of the configuration), with no leading dimension (an image)
 or one (a batch of frames); three planes of one (B, 3, ah, aw) tensor are
@@ -25,7 +39,8 @@ taken as they lie, with their strides. On CUDA the kernels
 (`csrc/dwt_forward.cu`, `csrc/dwt_reverse.cu`) launch one grid per level on
 the current stream of the tensors' device, under that device, without
 synchronising; there is no path from a CUDA tensor to the plain version.
-`FORWARD_LAUNCHES` / `REVERSE_LAUNCHES` count the calls that launched them.
+`FORWARD_LAUNCHES` / `REVERSE_LAUNCHES` count the calls that launched them
+(a shard-mode call is one).
 
 The plain version is the arithmetic contract: the 9/7 lifting rounds once
 per JAX op, and the ICT is the oracle's FMA chain (`fma_row`); the kernels
@@ -36,6 +51,7 @@ a constant exactly through its float32 `reciprocal` (csrc/dwt_common.cuh
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 
@@ -81,9 +97,11 @@ FLOAT32_OPS_PER_S = 67e12
 # scaling per pass
 OPS_PER_SAMPLE_LEVEL = {False: 7, True: 14}
 
-# the kernels' sample types, as the C entry points take them
+# the kernels' sample types, as the C entry points take them; the shard
+# mode's X2 also takes int32 (5/3) or float32 (9/7) values, with no prep
 _SAMPLE_TYPES = {torch.uint8: 0, torch.int8: 1, torch.uint16: 2,
                  torch.int16: 3}
+_VALUES = 4
 
 # the reference's float -> int reconstruction, __float2int_rn(x + 0.01f)
 # (DecodingEngine.cu:640-642, 706-715)
@@ -219,6 +237,17 @@ def _device_type(tensors: list[torch.Tensor], what: str) -> str:
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"no {what} implementation for device {dev}")
     return dev.type
+
+
+def _on(dev: torch.device):
+    """The device and the raw handle of its current stream for a launch:
+    `torch.cuda.device` is entered only when `dev` is not the current
+    device, and the handle is read without a Stream object (the two cost
+    3.6 and 5.6 us of a 2048^2 call's host time on an H100; kernel_ab
+    --pack)."""
+    ctx = (contextlib.nullcontext() if dev.index == torch.cuda.current_device()
+           else torch.cuda.device(dev))
+    return ctx, torch._C._cuda_getCurrentRawStream(dev.index)
 
 
 def _n_components(cfg: CodecConfig, got: int, what: str) -> int:
@@ -426,3 +455,227 @@ def bound_ms(samples: list[torch.Tensor], cfg: CodecConfig) -> tuple[float, str]
     ops_s = planes * OPS_PER_SAMPLE_LEVEL[cfg.is_lossy] / rate
     return (max(ops_s, bytes_s) * 1e3,
             "operations" if ops_s > bytes_s else "bytes")
+
+
+# --------------------------------------------------------------------------
+# The shard mode: one level of one shard's rows (dist/sharded.py)
+# --------------------------------------------------------------------------
+
+def _value_dtype(cfg: CodecConfig) -> torch.dtype:
+    return torch.float32 if cfg.is_lossy else torch.int32
+
+
+def _check_rows(what: str, held: tuple[int, int], rows: tuple[int, int],
+                height: int) -> None:
+    """A buffer holding rows [in0, in1) of a plane `height` rows high, of
+    which the rows [r0, r1) are to be stored: every bound even, the rows
+    inside the buffer, the buffer inside the plane."""
+    (in0, in1), (r0, r1) = held, rows
+    if any(v % 2 for v in (in0, in1, r0, r1)) or not (
+            0 <= in0 <= r0 < r1 <= in1 <= height):
+        raise ValueError(f"{what}: rows [{r0}, {r1}) of a buffer holding "
+                         f"[{in0}, {in1}) of {height}: need even bounds, "
+                         f"0 <= in0 <= r0 < r1 <= in1 <= {height}")
+
+
+def _check_shard_planes(planes: list[torch.Tensor], cfg: CodecConfig,
+                        level: int, first: int, r0: int, r1: int) -> bool:
+    """X2's shard-mode input: whether it is samples (else int32 / float32
+    values); raises on what the kernels do not take."""
+    ah, aw = _geometry(cfg)
+    h, w = ah >> level, aw >> level
+    if not 0 <= level < cfg.wavelet_levels:
+        raise ValueError(f"level {level} of {cfg.wavelet_levels}")
+    if not 1 <= len(planes) <= 3:
+        raise ValueError(f"expected 1 to 3 planes, got {len(planes)}")
+    first_p = planes[0]
+    samples = first_p.dtype in _SAMPLE_TYPES
+    if samples:
+        if level:
+            raise TypeError(f"level {level} takes {_value_dtype(cfg)} "
+                            f"values, got {first_p.dtype} samples")
+        _n_components(cfg, len(planes), "sample planes")
+    elif first_p.dtype != _value_dtype(cfg):
+        raise TypeError(f"the shard's planes must be samples or "
+                        f"{_value_dtype(cfg)}, got {first_p.dtype}")
+    if first_p.dim() != 2 or first_p.shape[1] != w:
+        raise ValueError(f"the shard's planes must have shape (rows, {w}), "
+                         f"got {tuple(first_p.shape)}")
+    for p in planes:
+        if (p.dtype, p.shape, p.stride()) != (first_p.dtype, first_p.shape,
+                                              first_p.stride()):
+            raise ValueError("the planes differ in type, shape or strides")
+    if first_p.stride(-1) != 1 or first_p.stride(0) < w:
+        raise ValueError(f"plane rows must be contiguous, got strides "
+                         f"{first_p.stride()}")
+    _check_rows("X2 shard", (first, first + first_p.shape[0]), (r0, r1), h)
+    return samples
+
+
+def forward_shard_plain(planes: list[torch.Tensor], cfg: CodecConfig,
+                        level: int, first: int, r0: int, r1: int,
+                        top: torch.Tensor | None = None):
+    """X2's shard mode as torch ops: `forward_shard`'s arguments and
+    results. The prep (samples only), then the vertical lifting of the
+    whole buffer (`_nxt` / `_prv` replicate at its ends: the plane's own
+    edge rule where they are the plane's top or bottom, elsewhere garbage
+    that stays in the halo), the interior's horizontal lifting and, for
+    9/7, the quantization, truncated to int32 (the intermediate LL kept as
+    it is)."""
+    lossy, levels = cfg.is_lossy, cfg.wavelet_levels
+    if planes[0].dtype in _SAMPLE_TYPES:
+        planes = prep(planes, cfg)
+    lo, hi = dwt.lift_vertical(torch.stack(planes), lossy)
+    a, b = (r0 - first) // 2, (r1 - first) // 2
+    ll, hl, lh, hh = dwt.lift_horizontal(lo[..., a:b, :], hi[..., a:b, :],
+                                         lossy)
+    if lossy:
+        ll, hl, lh, hh = dwt.quantize_level(ll, hl, lh, hh, level, levels,
+                                            cfg.qs)
+    last = level == levels - 1
+    hl, lh, hh = (t.to(torch.int32) for t in (hl, lh, hh))
+    if last:
+        ll = ll.to(torch.int32)
+    coded = (ll, hl, lh, hh) if last else (hl, lh, hh)
+    m = torch.stack([t.abs().amax() for t in coded]).amax()
+    return (ll, hl, lh, hh), (m if top is None else torch.maximum(top, m))
+
+
+def forward_shard(planes: list[torch.Tensor], cfg: CodecConfig, level: int,
+                  first: int, r0: int, r1: int,
+                  top: torch.Tensor | None = None, lib=None):
+    """X2's shard mode: level `level` of the plane rows [r0, r1) (even) of
+    `planes`, which hold the rows from `first` on of the level's plane
+    (ah >> level, aw >> level): the shard's rows and its neighbours' halo,
+    HALO[lossy] rows a side where the plane has them. At level 0 the
+    component's sample planes (one gray or [R, G, B]; the prep runs on
+    them), or at any level 1 to 3 planes of int32 (5/3) or float32 (9/7)
+    values. -> ((ll, hl, lh, hh), top): each band's rows (comps, (r1 - r0) /
+    2, w / 2), int32 (the intermediate LL of 9/7 float32), and the 0-dim
+    int32 maximum magnitude of the quantized bands (HL, LH, HH; the LL at
+    the last level), taken with `top` when given (on a card the kernel
+    raises `top` in place)."""
+    global FORWARD_LAUNCHES
+    device = _device_type(planes, "X2")
+    samples = _check_shard_planes(planes, cfg, level, first, r0, r1)
+    if device == "cpu":
+        return forward_shard_plain(planes, cfg, level, first, r0, r1, top)
+    nc, dev = len(planes), planes[0].device
+    ah, aw = _geometry(cfg)
+    h, w = ah >> level, aw >> level
+    bands = torch.empty((4, nc, (r1 - r0) // 2, w // 2), dtype=torch.int32,
+                        device=dev)
+    if top is None:
+        top = torch.zeros((), dtype=torch.int32, device=dev)
+    consts = _constants(cfg.wavelet_levels, cfg.qs, True)
+    ptrs = [p.data_ptr() for p in planes] + [None] * (3 - nc)
+    lib = lib or kernels.library()
+    ctx, stream = _on(dev)
+    with ctx:
+        rc = lib.picsong_dwt_forward_shard(
+            *ptrs, _SAMPLE_TYPES[planes[0].dtype] if samples else _VALUES,
+            int(vector_loads(planes)), planes[0].stride(0), nc, h, w, level,
+            cfg.wavelet_levels, int(cfg.is_lossy), offset(cfg), first,
+            first + planes[0].shape[0], r0, r1, ctypes.addressof(consts),
+            bands.data_ptr(), top.data_ptr(), stream)
+    FORWARD_LAUNCHES += 1
+    kernels.check(lib, rc, "dwt_forward_shard launch")
+    ll = bands[0]
+    if cfg.is_lossy and level < cfg.wavelet_levels - 1:
+        ll = ll.view(torch.float32)
+    return (ll, bands[1], bands[2], bands[3]), top
+
+
+def _check_shard_bands(bands, cfg: CodecConfig, level: int, first: int,
+                       r0: int, r1: int, to_samples: bool) -> int:
+    """X4's shard-mode input: the component count; raises on what the
+    kernels do not take."""
+    ah, aw = _geometry(cfg)
+    if not 0 <= level < cfg.wavelet_levels:
+        raise ValueError(f"level {level} of {cfg.wavelet_levels}")
+    if len(bands) != 4:
+        raise ValueError(f"expected the LL, HL, LH and HH band rows, got "
+                         f"{len(bands)} tensors")
+    h2, w2 = ah >> (level + 1), aw >> (level + 1)
+    shape = bands[0].shape
+    if len(shape) != 3 or not 1 <= shape[0] <= 3 or shape[2] != w2:
+        raise ValueError(f"band rows must have shape (comps, rows, {w2}), "
+                         f"got {tuple(shape)}")
+    ll_type = (torch.float32 if cfg.is_lossy
+               and level < cfg.wavelet_levels - 1 else torch.int32)
+    for b, want in zip(bands, (ll_type, torch.int32, torch.int32,
+                               torch.int32)):
+        if b.dtype != want:
+            raise TypeError(f"band rows must be {want}, got {b.dtype}")
+        if b.shape != shape:
+            raise ValueError("the bands' rows differ in shape")
+        if not b.is_contiguous():
+            raise ValueError("band rows must be contiguous")
+    if level == 0 and to_samples:
+        _n_components(cfg, shape[0], "components")
+    _check_rows("X4 shard", (2 * first, 2 * (first + shape[1])), (r0, r1),
+                2 * h2)
+    return shape[0]
+
+
+def reverse_shard_plain(bands, cfg: CodecConfig, level: int, first: int,
+                        r0: int, r1: int, to_samples: bool = True):
+    """X4's shard mode as torch ops: `reverse_shard`'s arguments and
+    result. 9/7's midpoint dequantization (the LL only at the deepest
+    level), the horizontal and then the vertical synthesis of the whole
+    buffer (garbage at its ends stays in the halo), the interior rows, and
+    at level 0 with `to_samples` the finish."""
+    lossy, levels = cfg.is_lossy, cfg.wavelet_levels
+    ll, hl, lh, hh = bands
+    if lossy:
+        if level == levels - 1:
+            ll = dwt.dequantize(ll, level, spec.QS_LL, cfg.qs)
+        hl, lh, hh = (dwt.dequantize(b, level, band, cfg.qs)
+                      for b, band in ((hl, spec.QS_HL), (lh, spec.QS_LH),
+                                      (hh, spec.QS_HH)))
+    x = dwt.unlift_vertical(*dwt.unlift_horizontal(ll, hl, lh, hh, lossy),
+                            lossy)[..., r0 - 2 * first:r1 - 2 * first, :]
+    if level == 0 and to_samples:
+        return torch.stack(finish(list(x.unbind(0)), cfg))
+    return x
+
+
+def reverse_shard(bands, cfg: CodecConfig, level: int, first: int, r0: int,
+                  r1: int, to_samples: bool = True, lib=None) -> torch.Tensor:
+    """X4's shard mode: level `level` from the (comps, rows, w / 2) band
+    rows (LL, HL, LH, HH: the LL's values above the deepest level, float32
+    for 9/7, else quantized int32) that hold the band rows from `first` on:
+    the shard's and its neighbours' halo, HALO[lossy] / 2 rows a side where
+    the band has them. -> the plane rows [r0, r1) (even) of the level's
+    plane, (comps, r1 - r0, aw >> level) int32 (5/3) or float32 (9/7); at
+    level 0 with `to_samples` the finish's sample planes of the
+    configuration's type."""
+    global REVERSE_LAUNCHES
+    bands = tuple(bands)
+    device = _device_type(list(bands), "X4")
+    nc = _check_shard_bands(bands, cfg, level, first, r0, r1, to_samples)
+    if device == "cpu":
+        return reverse_shard_plain(bands, cfg, level, first, r0, r1,
+                                   to_samples)
+    dev = bands[0].device
+    ah, aw = _geometry(cfg)
+    h, w = ah >> level, aw >> level
+    final = level == 0 and to_samples
+    out = torch.empty((nc, r1 - r0, w),
+                      dtype=sample_dtype(cfg) if final else torch.int32,
+                      device=dev)
+    consts = _constants(cfg.wavelet_levels, cfg.qs, False)
+    mn, mx = sample_range(cfg)
+    lib = lib or kernels.library()
+    ctx, stream = _on(dev)
+    with ctx:
+        rc = lib.picsong_dwt_reverse_shard(
+            *(b.data_ptr() for b in bands), int(vector_block_loads(bands)),
+            nc, h, w, level, cfg.wavelet_levels, int(cfg.is_lossy),
+            int(final), offset(cfg), mn, mx,
+            _SAMPLE_TYPES[out.dtype] if final else _VALUES,
+            ctypes.addressof(consts), first, first + bands[0].shape[1], r0,
+            r1, out.data_ptr(), stream)
+    REVERSE_LAUNCHES += 1
+    kernels.check(lib, rc, "dwt_reverse_shard launch")
+    return out.view(torch.float32) if cfg.is_lossy and not final else out

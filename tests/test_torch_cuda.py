@@ -654,6 +654,91 @@ def test_dwt_launch_goes_to_the_current_stream(cuda):
     assert torch.equal(back[0].cpu(), dwt_cuda.reverse(want, cfg)[0])
 
 
+@pytest.mark.parametrize("rgb,lossy,n", [(False, False, 3), (True, True, 2),
+                                         (False, True, 4)])
+def test_sharded_codec_runs_the_shard_modes(cuda, rgb, lossy, n):
+    """ShardedCodec on n shares of the card: one launch of X2's and one of
+    X4's shard mode a shard and level (the lossy 4-shard plan gathers from
+    level 4), the unsharded card codestream and decode, and the codestream
+    of the same codec on CPU shards (the plain version)."""
+    cfg = _dwt_cfg(256, 256, rgb=rgb, lossy=lossy, wl=5)
+    samples = [s.numpy() for s in _dwt_samples(cfg)]
+    pixels = samples if rgb else samples[0]
+    luts = [neutral_lut(PARAMS, 5, 2)] * len(samples)
+    codec = ShardedCodec(cfg, luts, PARAMS, [cuda] * n)
+    launches = sum(len(spans) for spans in codec._plan)
+    dwt_cuda.reset_launches()
+    got = codec.encode(pixels)
+    assert dwt_cuda.FORWARD_LAUNCHES == launches
+    back = codec.decode(got)
+    assert dwt_cuda.REVERSE_LAUNCHES == launches
+    single = TorchCodec(cfg, luts, PARAMS, cuda)
+    want = single.encode(pixels)
+    cpu = ShardedCodec(cfg, luts, PARAMS, ["cpu"] * n).encode(pixels)
+    for g, w_, c in zip(got, want, cpu):
+        assert np.array_equal(g, w_) and np.array_equal(g, c)
+    for b, w_ in zip(back if rgb else [back],
+                     single.decode(want) if rgb else [single.decode(want)]):
+        assert np.array_equal(b, w_)
+
+
+@pytest.mark.parametrize("lossy", [False, True])
+def test_sharded_codec_on_several_cards(cuda, lossy, monkeypatch):
+    """ShardedCodec with shard i on cuda:(i mod card count), up to 4 cards:
+    the unsharded codestream and decode, and each shard mode's launch on
+    its shard's card (level by level, deepest last forward and first
+    back) and that card's current stream."""
+    cards = min(torch.cuda.device_count(), 4)
+    if cards < 2:
+        pytest.skip("needs two or more cards")
+    cfg = _dwt_cfg(512, 256, lossy=lossy, wl=5)
+    pixels = _dwt_samples(cfg)[0].numpy()
+    luts = [neutral_lut(PARAMS, 5, 2)]
+    spy = _Spy("picsong_dwt_")
+    monkeypatch.setattr(kernels, "library", lambda *a, **k: spy)
+    codec = ShardedCodec(cfg, luts, PARAMS, cards)
+    got = codec.encode(pixels)
+    back = codec.decode(got)
+    calls = list(spy.calls)
+    single = TorchCodec(cfg, luts, PARAMS, cuda)
+    want = single.encode(pixels)
+    assert np.array_equal(got[0], want[0])
+    assert np.array_equal(back, single.decode(want))
+    order = [codec.devices[s].index for spans in codec._plan
+             for s, _, _ in spans]
+    want_cards = order + [codec.devices[s].index
+                          for spans in reversed(codec._plan)
+                          for s, _, _ in spans]
+    assert [d for _, d in calls] == want_cards
+    assert {d for _, d in calls} == set(range(cards))
+    for stream, d in calls:
+        assert stream == torch.cuda.current_stream(d).cuda_stream
+
+
+def test_shard_mode_launches_go_to_the_current_stream(cuda):
+    """Under a non-default current stream the shard modes launch on that
+    stream, with the plain version's results."""
+    cfg = _dwt_cfg(256, 256, lossy=True, wl=3)
+    (plane,) = _dwt_samples(cfg)
+    rows = plane[56:140]            # rows 60..136 with the 9/7 halo of 4
+    spy = _Spy("picsong_dwt_")
+    side = torch.cuda.Stream(cuda)
+    with torch.cuda.stream(side):
+        bands, top = dwt_cuda.forward_shard([rows.to(cuda)], cfg, 0, 56, 60,
+                                            136, lib=spy)
+        # band rows 30..68: rows 64..128 with the band halo of 2
+        back = dwt_cuda.reverse_shard(bands, cfg, 0, 30, 64, 128, lib=spy)
+    torch.cuda.synchronize()
+    assert spy.calls == [(side.cuda_stream, torch.cuda.current_device())] * 2
+    want, want_top = dwt_cuda.forward_shard_plain([rows], cfg, 0, 56, 60,
+                                                  136)
+    assert int(top) == int(want_top)
+    for b, w_ in zip(bands, want):
+        assert torch.equal(b.cpu(), w_)
+    assert torch.equal(back.cpu(), dwt_cuda.reverse_shard_plain(
+        want, cfg, 0, 30, 64, 128))
+
+
 # -- X3: the codestream pack and unpack kernels -------------------------------
 
 def _pack_batch(seed, kind, n):

@@ -255,10 +255,12 @@ def test_vector_block_loads_need_16_byte_bases(skips, want):
 
 
 def test_entry_points_are_bound():
-    """The C entry points of csrc/dwt_forward.cu and dwt_reverse.cu are
-    declared for ctypes with as many arguments as the sources take."""
-    for name in ("forward", "reverse"):
-        with open(os.path.join(kernels.CSRC_DIR, f"dwt_{name}.cu")) as f:
+    """The C entry points of csrc/dwt_forward.cu and dwt_reverse.cu (and
+    their shard modes') are declared for ctypes with as many arguments as
+    the sources take."""
+    for name in ("forward", "reverse", "forward_shard", "reverse_shard"):
+        source = f"dwt_{name.split('_')[0]}.cu"
+        with open(os.path.join(kernels.CSRC_DIR, source)) as f:
             src = f.read()
         m = re.search(r'extern "C" int picsong_dwt_' + name + r"\(([^)]*)\)",
                       src)
