@@ -34,7 +34,8 @@ or of the JAX package `picsong_tpu` is imported:
   streams, the 1080p video batch's and 8192^2's, timed at those three
   (kernels, their device time in a CUDA graph, plain, bound);
 - the two probe kernels against their plain versions on the probes' own
-  and on edge inputs, then the probe entry points;
+  inputs, seed 1, edge inputs and views one word off 16-byte alignment,
+  then the probe entry points;
 - gray lossy 9/7, 2048x2048 at 3 levels, qs 1 (BASELINE config 2),
   neutral and trained lossy LUTs, plus a 512x512 byte check against the
   oracle's codestream and decoded samples;
@@ -96,7 +97,9 @@ samples. Then
 it times the device halves and CLI round trips of the paths (the two
 cli.main calls alone) and each kernel variant against its plain version.
 The probes' times stand beside the launch floor: a one-element torch op
-timed the same way. Every comparison is exact except the lossy PSNR
+timed the same way; their device times (a CUDA graph of 20 launches,
+`kernel_ab.graph_ms`) beside the graph floor, that op's in the same
+kind of graph. Every comparison is exact except the lossy PSNR
 floors, which are stated where they are checked. The main path's layers
 include the device pack and unpack of the codestream (assembly/pack.py):
 only the packed bytes cross PCIe. Every CLI round trip must launch X2,
@@ -1621,7 +1624,7 @@ def main() -> int:
     from picsong_tpu_torch.engine import cli
     from picsong_tpu_torch.engine.pipeline import TorchCodec
     from picsong_tpu_torch.entropy import bpc, bpc_cuda
-    from picsong_tpu_torch.tools import goldens, probe, probe2
+    from picsong_tpu_torch.tools import goldens, kernel_ab, probe, probe2
     from picsong_tpu_torch.transform import dwt_cuda
 
     make_image = goldens.make_image
@@ -2010,10 +2013,12 @@ def main() -> int:
     perr = {"probe": 0, "probe2": 0}
     pt = {}
     for name, module in (("probe", probe), ("probe2", probe2)):
-        for what, args in (("probe inputs", module.inputs(0)),
-                           ("seed 1", module.inputs(1)),
-                           ("edge inputs", module.edge_inputs())):
-            dargs = [gpu(a) for a in args]
+        for what, args, skip in (
+                ("probe inputs", module.inputs(0), 0),
+                ("seed 1", module.inputs(1), 0),
+                ("edge inputs", module.edge_inputs(), 0),
+                ("views 1 word off 16-byte alignment", module.inputs(2), 1)):
+            dargs = offset_views([gpu(a) for a in args], skip)
             got_k = module.run(*dargs)
             got_p = module.plain(*dargs)
             torch.cuda.synchronize()
@@ -2034,17 +2039,27 @@ def main() -> int:
             "(total)", device_ms(lambda: [module.plain(*dargs)
                                        for _ in range(PROBE_CALLS)]),
             rate=False) / PROBE_CALLS
-        print(f"{tag} {name}: kernel {pt[name]:.6f} ms/call, plain "
+        # the kernel's device time without the wrapper's host time
+        pt[name + " device"] = kernel_ab.graph_ms(
+            lambda: module.launch(*dargs))
+        pt[name + " bound"] = module.bound_ms(*dargs)
+        print(f"{tag} {name}: kernel {pt[name]:.6f} ms/call, device "
+              f"{pt[name + ' device']:.6f} ms/call (CUDA graph), plain "
               f"{pt[name + ' plain']:.6f} ms/call (max abs err "
               f"{perr[name]})")
-    # the launch floor, timed as the probes are: a one-element torch op
+    # the floors, timed as the probes are: a one-element torch op, back to
+    # back and in a CUDA graph
     one = torch.zeros(1, dtype=torch.int32, device=dev)
     floor = report(f"launch floor: a one-element torch op (add_), "
                    f"{PROBE_CALLS} back-to-back calls (total)", device_ms(
                        lambda: [one.add_(1) for _ in range(PROBE_CALLS)]),
                    rate=False) / PROBE_CALLS
+    graph_floor = kernel_ab.graph_ms(lambda: one.add_(1))
     print(f"{tag} launch floor {floor:.6f} ms a call, beside the probes' "
-          f"{pt['probe']:.6f} / {pt['probe2']:.6f} ms")
+          f"{pt['probe']:.6f} / {pt['probe2']:.6f} ms; graph floor "
+          f"{graph_floor:.6f} ms a call, beside the probes' device "
+          f"{pt['probe device']:.6f} / {pt['probe2 device']:.6f} ms; bounds "
+          f"{pt['probe bound'][0]:.8f} / {pt['probe2 bound'][0]:.8f} ms")
     probe_launches = {}
     for name, module in (("probe", probe), ("probe2", probe2)):
         print(f"{tag} python -m picsong_tpu_torch.tools.{name}:")
@@ -2490,13 +2505,14 @@ def main() -> int:
                         "bound_by": v[d]["bound_by"]}
                        for label, v in x3["times"].items()]})
     for name, line in (("probe", 58), ("probe2", 54)):
-        module = probe if name == "probe" else probe2
-        bound, by = module.bound_ms(*(gpu(x) for x in module.inputs(0)))
+        bound, by = pt[name + " bound"]
         entries.append({
             "name": name, "route": "cuda", "source": f"{src_dir}/{name}.cu",
             "replaces": f"tools/pallas_{name}.py:{line}",
             "launches": probe_launches[name], "max_abs_err": perr[name],
             "ms": pt[name], "plain_ms": pt[name + " plain"],
+            "device_ms": pt[name + " device"], "launch_floor_ms": floor,
+            "graph_floor_ms": graph_floor,
             "bound_ms": bound, "bound_by": by, "library_ms": None})
     print(json.dumps({"kernels": entries}))
     print(card)

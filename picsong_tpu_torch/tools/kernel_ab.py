@@ -7,6 +7,7 @@ checkout's, on one card, in one process.
     python -m picsong_tpu_torch.tools.kernel_ab [--other DIR] --split
     python -m picsong_tpu_torch.tools.kernel_ab --other DIR --pack
     python -m picsong_tpu_torch.tools.kernel_ab --other DIR --sharded
+    python -m picsong_tpu_torch.tools.kernel_ab --other DIR --probes
     python -m picsong_tpu_torch.tools.kernel_ab --other DIR --sass
 
 DIR is the root of another checkout (a `git archive` of the parent
@@ -74,6 +75,20 @@ CLI round trip unsharded and with `-sharded 2`. Both trees' streams, sizes, deco
 samples and files must be byte-equal (and the decode bit-exact). One JSON
 line per (shards, layer).
 
+`--probes` instead times the probe kernels K3 and K4 (`tools/probe.py`
+and `tools/probe2.py` `launch`), this tree's and the other's, each
+through its own package, in the LAYER_TURNS, on the probes' own inputs:
+the call time (CUDA events over PROBE_CALLS back-to-back launches,
+medians of 10) and the device time (`graph_ms`), beside the same two
+times of a one-element `add_` (the launch floor and the graph floor) and
+the bound (`bound_ms`). Both trees' outputs must be byte-equal to each
+other and to the plain version on the probes' inputs, seeds 1 and 2 and
+the edge inputs. One JSON line for the floors and one per probe. Then
+the wrapper split: the host time of each part of one `launch` (and of
+`check_inputs`, which `run` adds), each part run alone SPLIT_REPS times
+back to back, median of 5, beside both trees' whole `launch` (medians
+over the LAYER_TURNS); one JSON line per part.
+
 `--sass` instead compiles both trees' `csrc/dwt_forward.cu` and
 `dwt_reverse.cu` to cubins (nvcc with the package's flags) and compares
 the SASS of X2's and X4's whole-plane variants instruction by
@@ -81,6 +96,10 @@ instruction (`cuobjdump -sass`, addresses and encodings dropped): this
 tree's variants with kShard false against the other tree's of the same
 other template arguments. One JSON line per kernel: the variants, how
 many are the same, and the first differing instruction of each other.
+Then it dumps both trees' `probe_kernel` and `probe2_kernel` (`probe.cu`,
+`probe2.cu`): a JSON line each with the counts of instructions, global
+loads and stores, shuffles and branches, and whether a branch goes back
+(a loop), then the instructions, one a line.
 """
 
 from __future__ import annotations
@@ -111,6 +130,8 @@ SPLIT_LEVELS = 5
 PACK_SHAPES = (("2048^2", 2048, 2048, 0), ("(8, 1088, 1920)", 1080, 1920, 8),
                ("8192^2", 8192, 8192, 0))
 SPLIT_REPS = 200
+# back-to-back launches of a probe's call time (as chip_smoke.py's)
+PROBE_CALLS = 200
 # the row-sharded path's shard counts on one card (`--sharded`)
 SHARDED_COUNTS = (2, 4)
 
@@ -352,23 +373,19 @@ def _layers(other_root: str, card: str) -> int:
             })
         for layer, make in layers.items():
             host = layer.startswith("device")
-            samples_ms = {"other": [], "this": []}
-            for t in LAYER_TURNS:
-                fn = make(t)
-                samples_ms[t] += (_host_times(fn) if host
-                                  else _times(fn, per=1))
+            samples_ms = in_turns({t: make(t) for t in fns}, {
+                "ms": _host_times if host else (lambda fn: _times(fn, per=1))
+            })["ms"]
             _print_ab(name, layer, "host clock" if host else "CUDA events",
                       samples_ms, card)
         # X2's device time a call, without the wrapper's host time
-        samples_ms = {"other": [], "this": []}
-        for t in LAYER_TURNS:
-            samples_ms[t].append(graph_ms(fns[t][0]))
+        samples_ms = in_turns({t: f[0] for t, f in fns.items()},
+                              {"ms": lambda fn: [graph_ms(fn)]})["ms"]
         _print_ab(name, "prep+DWT+tile device", "CUDA graph", samples_ms,
                   card)
         if not kw.get("is_lossy"):
-            samples_ms = {"other": [], "this": []}
-            for t in LAYER_TURNS:
-                samples_ms[t] += _host_times(round_trip(t))
+            samples_ms = in_turns({t: round_trip(t) for t in fns},
+                                  {"ms": _host_times})["ms"]
             if not np.array_equal(np.fromfile(dec, np.uint8)[-img.size:],
                                   img.ravel()):
                 print("kernel_ab: CLI round trip not bit-exact",
@@ -430,6 +447,71 @@ def _host_us(fn, reps: int = SPLIT_REPS) -> float:
     return statistics.median(out)
 
 
+def in_turns(fns: dict, timers: dict, turns=LAYER_TURNS) -> dict:
+    """Each timer's samples of each tree's callable, the trees timed in
+    `turns` (the clocks drift within a run, so every tree is timed in every
+    stretch of it): `fns` maps a tree to its callable, `timers` a name to a
+    function from a callable to a list of samples. Returns {name: {tree:
+    samples}}."""
+    got = {name: {t: [] for t in fns} for name in timers}
+    for t in turns:
+        for name, timer in timers.items():
+            got[name][t] += timer(fns[t])
+    return got
+
+
+# in_turns' timers of a kernel's device time and call time
+DEVICE_AND_CALL = {"device": lambda fn: [graph_ms(fn)], "call": _times}
+
+
+def _ab_medians(got: dict, bound: float, by: str) -> dict:
+    """The JSON fields of `in_turns`' DEVICE_AND_CALL samples of both
+    trees beside a bound: medians, the calls' minima and the shares of the
+    bound."""
+    dev = {t: statistics.median(v) for t, v in got["device"].items()}
+    call = got["call"]
+    return {"device_ms": dev["this"], "other_device_ms": dev["other"],
+            "ms": statistics.median(call["this"]),
+            "other_ms": statistics.median(call["other"]),
+            "ms_min": min(call["this"]), "other_ms_min": min(call["other"]),
+            "bound_ms": bound, "bound_by": by,
+            "share_of_bound": bound / dev["this"],
+            "other_share_of_bound": bound / dev["other"]}
+
+
+def host_split(parts: dict, **fields) -> None:
+    """The host time of each part of a call, `_host_us` of its callable
+    (None: left out), one JSON line a part with `fields`."""
+    for part, fn in parts.items():
+        if fn is not None:
+            print(json.dumps({**fields, "part": part, "us": _host_us(fn)}),
+                  flush=True)
+
+
+def _stream_parts(dev, on) -> dict:
+    """The parts of a launch that find its device and stream: the device
+    context and the Stream object's handle, and what the wrappers run in
+    their place, `on` (`transform/dwt_cuda.py` `_on`)."""
+    import torch
+
+    def context():
+        with torch.cuda.device(dev):
+            pass
+
+    def raw():
+        ctx, stream = on(dev)
+        with ctx:
+            return stream
+
+    return {
+        "with torch.cuda.device(dev)": context,
+        "torch.cuda.current_device()": torch.cuda.current_device,
+        "torch.cuda.current_stream(dev).cuda_stream":
+            lambda: torch.cuda.current_stream(dev).cuda_stream,
+        "_on(dev) (context when not current, raw stream)": raw,
+    }
+
+
 def wrapper_split(pack, kernels, streams, sizes, header, card,
                   other=None) -> None:
     """The host time of each part of one `pack_streams` and one
@@ -453,15 +535,6 @@ def wrapper_split(pack, kernels, streams, sizes, header, card,
     hdr = (ctypes.c_uint16 * pack.HEADER_SHORTS)(*header.tolist())
     stream = torch.cuda.current_stream(dev).cuda_stream
 
-    def context():
-        with torch.cuda.device(dev):
-            pass
-
-    def on():
-        ctx, raw = pack._on(dev)
-        with ctx:
-            return raw
-
     def header_arg():
         h = np.ascontiguousarray(header, dtype=np.uint16)
         return (ctypes.c_uint16 * pack.HEADER_SHORTS)(*h.tolist())
@@ -477,12 +550,7 @@ def wrapper_split(pack, kernels, streams, sizes, header, card,
             pack.status_words(n), dtype=torch.int64, device=dev),
         "torch.empty (status, for the zeroing's share)": lambda: torch.empty(
             pack.status_words(n), dtype=torch.int64, device=dev),
-        "with torch.cuda.device(dev)": context,
-        "torch.cuda.current_device()": torch.cuda.current_device,
-        "torch.cuda.current_stream(dev).cuda_stream":
-            lambda: torch.cuda.current_stream(dev).cuda_stream,
-        # what the wrapper runs in place of the two above
-        "pack._on(dev) (context when not current, raw stream)": on,
+        **_stream_parts(dev, pack._on),
     }
     parts = {
         "pack": {
@@ -526,11 +594,7 @@ def wrapper_split(pack, kernels, streams, sizes, header, card,
         },
     }
     for d, fns in parts.items():
-        for part, fn in fns.items():
-            if fn is None:
-                continue
-            print(json.dumps({"split": d, "part": part, "us": _host_us(fn),
-                              "codeblocks": n, "card": card}), flush=True)
+        host_split(fns, split=d, codeblocks=n, card=card)
 
 
 def _pack(other_root: str, card: str) -> int:
@@ -572,27 +636,108 @@ def _pack(other_root: str, card: str) -> int:
                     return lambda: m.pack_streams(streams, sizes, header,
                                                   payload=payload)
                 return lambda: m.unpack_streams(code, n, payload)
-            device = {"other": [], "this": []}
-            call = {"other": [], "this": []}
-            for t in ("other", "this", "this", "other"):
-                device[t].append(graph_ms(run(packs[t])))
-                call[t] += _times(run(packs[t]))
-            ms = {t: statistics.median(v) for t, v in device.items()}
+            got = in_turns({t: run(m) for t, m in packs.items()},
+                           DEVICE_AND_CALL, ("other", "this", "this",
+                                             "other"))
             print(json.dumps({
                 "shape": label, "codeblocks": n, "payload": payload,
-                "kernel": d, "device_ms": ms["this"],
-                "other_device_ms": ms["other"],
-                "ms": statistics.median(call["this"]),
-                "other_ms": statistics.median(call["other"]),
-                "bound_ms": bound[d][0], "bound_by": bound[d][1],
-                "share_of_bound": bound[d][0] / ms["this"],
-                "other_share_of_bound": bound[d][0] / ms["other"],
+                "kernel": d, **_ab_medians(got, *bound[d]),
                 "card": card}), flush=True)
         if label == PACK_SHAPES[0][0]:
             split_inputs = (streams, sizes, header)
         del streams, sizes, got, code, back, filler
         torch.cuda.empty_cache()
     wrapper_split(pack, kernels, *split_inputs, card, packs["other"])
+    return 0
+
+
+def probe_cases(module) -> tuple:
+    """(label, numpy arguments) of a probe module's checked inputs: its own
+    (seed 0), seeds 1 and 2 and its edge inputs."""
+    return (("probe inputs", module.inputs(0)), ("seed 1", module.inputs(1)),
+            ("seed 2", module.inputs(2)), ("edge inputs", module.edge_inputs()))
+
+
+def probe_split(name: str, module, kernels, dargs, card, other) -> None:
+    """The host time of each part of one `launch` of the tree module
+    `module` (`tools/probe.py` or `probe2.py`, `name` its C entry point's
+    suffix) on its CUDA arguments `dargs`, each part as the wrapper runs
+    it, beside `check_inputs` and `run` (which adds it); then the whole
+    `launch` of it and of the other tree's module `other` in the
+    LAYER_TURNS."""
+    import torch
+
+    from ..transform import dwt_cuda
+
+    lib, dev = kernels.library(), dargs[0].device
+    out = torch.empty((module.ROWS, module.C), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    entry = getattr(lib, f"picsong_{name}")
+    host_split({
+        "check_inputs (run's, outside launch; reads the device)":
+            lambda: module.check_inputs(*dargs),
+        "kernels.library()": kernels.library,
+        "torch.empty (out)": lambda: torch.empty(
+            (module.ROWS, module.C), dtype=torch.int32, device=dev),
+        **_stream_parts(dev, dwt_cuda._on),
+        "ctypes launch": lambda: entry(dargs[0].data_ptr(),
+                                       dargs[1].data_ptr(), out.data_ptr(),
+                                       stream),
+        "kernels.check": lambda: kernels.check(lib, 0, f"{name} launch"),
+        "whole run": lambda: module.run(*dargs),
+    }, split=name, card=card)
+    # the whole launch of both trees in turns: the host's spread is as
+    # large as the parts
+    us = in_turns({t: (lambda m=m: m.launch(*dargs))
+                   for t, m in (("this", module), ("other", other))},
+                  {"us": lambda fn: [_host_us(fn)]})["us"]
+    for t, samples in us.items():
+        print(json.dumps({"split": name, "part": "whole launch" + (
+            ", the other tree" if t == "other" else ""),
+            "us": statistics.median(samples), "us_min": min(samples),
+            "n": len(samples), "card": card}), flush=True)
+
+
+def _probes(other_root: str, card: str) -> int:
+    """Both trees' probe kernels at the probes' own inputs, in turns,
+    beside the floors; then this tree's wrapper split."""
+    import torch
+
+    from .. import kernels
+    from . import probe, probe2
+
+    _other_package(other_root)
+    dev = torch.device("cuda")
+    one = torch.zeros(1, dtype=torch.int32, device=dev)
+    floor = {"launch_floor_ms": statistics.median(_times(
+                 lambda: one.add_(1), per=PROBE_CALLS)),
+             "graph_floor_ms": graph_ms(lambda: one.add_(1))}
+    print(json.dumps({"floor": "one-element add_", **floor, "card": card}),
+          flush=True)
+    timers = {"device": lambda fn: [graph_ms(fn)],
+              "call": lambda fn: _times(fn, per=PROBE_CALLS)}
+    for name, module in (("probe", probe), ("probe2", probe2)):
+        mods = {"other": importlib.import_module(f"ab_other.tools.{name}"),
+                "this": module}
+        for label, args in probe_cases(module):
+            dargs = [torch.from_numpy(a).to(dev) for a in args]
+            got = {t: m.launch(*dargs) for t, m in mods.items()}
+            if not (torch.equal(got["this"], got["other"])
+                    and torch.equal(got["this"], module.plain(*dargs))):
+                print(f"kernel_ab: {name} ({label}): the trees or the plain "
+                      "version disagree", file=sys.stderr)
+                return 1
+        dargs = [torch.from_numpy(a).to(dev) for a in module.inputs(0)]
+        got = in_turns({t: (lambda m=m: m.launch(*dargs))
+                        for t, m in mods.items()}, timers)
+        print(json.dumps({
+            "kernel": name, **_ab_medians(got, *module.bound_ms(*dargs)),
+            **floor, "n": len(got["device"]["this"]), "card": card}),
+            flush=True)
+    for name, module in (("probe", probe), ("probe2", probe2)):
+        dargs = [torch.from_numpy(a).to(dev) for a in module.inputs(0)]
+        probe_split(name, module, kernels, dargs, card,
+                    importlib.import_module(f"ab_other.tools.{name}"))
     return 0
 
 
@@ -660,9 +805,8 @@ def _sharded(other_root: str, card: str) -> int:
             print(f"kernel_ab: {name}: the trees disagree", file=sys.stderr)
             return 1
         for layer in ("device encode", "device decode"):
-            samples_ms = {"other": [], "this": []}
-            for t in LAYER_TURNS:
-                samples_ms[t] += _host_times(fns[t][layer])
+            samples_ms = in_turns({t: f[layer] for t, f in fns.items()},
+                                  {"ms": _host_times})["ms"]
             _print_ab(name, layer, "host clock", samples_ms, card)
         del fns, outs
         torch.cuda.empty_cache()
@@ -682,9 +826,8 @@ def _sharded(other_root: str, card: str) -> int:
                     main(["-cd", "1", "-i", enc, "-o", dec, "-LUTFolder",
                           "neutral", *shard])
             return run
-        samples_ms = {"other": [], "this": []}
-        for t in LAYER_TURNS:
-            samples_ms[t] += _host_times(round_trip(t))
+        samples_ms = in_turns({t: round_trip(t) for t in trees},
+                              {"ms": _host_times})["ms"]
         got = {}
         for t, (enc, dec) in files.items():
             got[t] = []
@@ -704,9 +847,10 @@ def _sharded(other_root: str, card: str) -> int:
     return 0
 
 
-def _sass_of(cubin: str, cuobjdump: str) -> dict:
-    """A cubin's kernels by their template arguments -> their SASS
-    instructions (text without the address and encoding comments)."""
+def _sass_of(cubin: str, cuobjdump: str, addresses: bool = False) -> dict:
+    """A cubin's kernels by their demangled names -> their SASS
+    instructions (text without the encoding comments; with `addresses`,
+    (address, text) pairs, else the text alone)."""
     text = subprocess.run([cuobjdump, "-sass", cubin], capture_output=True,
                           text=True, check=True).stdout
     out, cur = {}, None
@@ -714,20 +858,42 @@ def _sass_of(cubin: str, cuobjdump: str) -> dict:
         if "Function : " in line:
             name = subprocess.run(
                 ["c++filt", line.split("Function : ")[1].strip()],
-                capture_output=True, text=True, check=True).stdout
-            args = name[name.index("<") + 1:name.index(">")]
-            cur = out.setdefault(tuple(a.strip() for a in args.split(",")),
-                                 [])
+                capture_output=True, text=True, check=True).stdout.strip()
+            cur = out.setdefault(name, [])
         elif cur is not None and line.strip().startswith("/*") and \
                 ";" in line:
-            cur.append(" ".join(line.split("*/", 1)[1].split(";")[0]
-                                .split()))
+            where, rest = line.strip()[2:].split("*/", 1)
+            code = " ".join(rest.split(";")[0].split())
+            cur.append((int(where, 16), code) if addresses else code)
     return out
+
+
+def _template_args(name: str) -> tuple:
+    return tuple(a.strip() for a in
+                 name[name.index("<") + 1:name.index(">")].split(","))
+
+
+def sass_summary(code: list) -> dict:
+    """Counts of one kernel's (address, instruction) list: instructions,
+    global loads and stores, shuffles, branches, and whether a branch goes
+    back to an earlier address (a loop; the branch to itself that ends
+    every kernel is not one)."""
+    ops = [c.split()[0] if not c.startswith("@") else c.split()[1]
+           for _, c in code]
+
+    def count(prefix):
+        return sum(op.startswith(prefix) for op in ops)
+
+    back = any(op == "BRA" and int(c.split("0x")[-1].split()[0], 16) < at
+               for (at, c), op in zip(code, ops) if "0x" in c)
+    return {"instructions": len(code), "global_loads": count("LDG"),
+            "global_stores": count("STG"), "shuffles": count("SHFL"),
+            "branches": count("BRA"), "loops": back}
 
 
 def _sass(other_root: str) -> int:
     """X2's and X4's whole-plane variants, this tree's against the other's
-    compiled from the same flags."""
+    compiled from the same flags; then both trees' probe kernels."""
     from .. import kernels
 
     nvcc = kernels.find_nvcc()
@@ -737,14 +903,18 @@ def _sass(other_root: str) -> int:
     trees = {"this": kernels.CSRC_DIR,
              "other": os.path.join(other_root, "picsong_tpu_torch", "csrc")}
     tmp = tempfile.TemporaryDirectory()
+
+    def compiled(t: str, source: str, addresses: bool = False) -> dict:
+        cubin = os.path.join(tmp.name, f"{t}_{source}.cubin")
+        subprocess.run([nvcc, *flags, "-cubin", "-o", cubin,
+                        os.path.join(trees[t], f"{source}.cu")],
+                       check=True, capture_output=True)
+        return _sass_of(cubin, cuobjdump, addresses)
+
     for name in ("forward", "reverse"):
-        sass = {}
-        for t, csrc in trees.items():
-            cubin = os.path.join(tmp.name, f"{t}_{name}.cubin")
-            subprocess.run([nvcc, *flags, "-cubin", "-o", cubin,
-                            os.path.join(csrc, f"dwt_{name}.cu")],
-                           check=True, capture_output=True)
-            sass[t] = _sass_of(cubin, cuobjdump)
+        sass = {t: {_template_args(k): v
+                    for k, v in compiled(t, f"dwt_{name}").items()}
+                for t in trees}
         same, differing = 0, []
         for args, code in sorted(sass["this"].items()):
             if args[-1] != "false":
@@ -761,6 +931,14 @@ def _sass(other_root: str) -> int:
         print(json.dumps({"kernel": f"dwt_{name}", "whole_plane_variants":
                           same + len(differing), "same_sass": same,
                           "differing": differing}), flush=True)
+    dumps = []
+    for source in ("probe", "probe2"):
+        for t in trees:
+            for fn, code in compiled(t, source, addresses=True).items():
+                print(json.dumps({"tree": t, "kernel": fn,
+                                  **sass_summary(code)}), flush=True)
+                dumps += [f"{t} {source} {at:04x} {c}" for at, c in code]
+    print("\n".join(dumps), flush=True)
     tmp.cleanup()
     return 0
 
@@ -784,6 +962,7 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--split", action="store_true")
     ap.add_argument("--pack", action="store_true")
     ap.add_argument("--sharded", action="store_true")
+    ap.add_argument("--probes", action="store_true")
     ap.add_argument("--sass", action="store_true")
     args = ap.parse_args(argv)
     if not (args.split or args.other):
@@ -815,6 +994,8 @@ def main(argv: list[str] | None = None) -> int:
         return _pack(os.path.abspath(args.other), card)
     if args.sharded:
         return _sharded(os.path.abspath(args.other), card)
+    if args.probes:
+        return _probes(os.path.abspath(args.other), card)
     if args.sass:
         return _sass(os.path.abspath(args.other))
     other_dir = os.path.join(os.path.abspath(args.other), "build", "ab")
@@ -881,9 +1062,9 @@ def main(argv: list[str] | None = None) -> int:
                             blocks, *a, **kw, lib=lib)
                     return lambda: bpc_cuda.decode_blocks(
                         streams, sizes, *a, **kw, lib=lib)
-                samples = {"other": [], "this": []}
-                for t in ("other", "this", "this", "other"):
-                    samples[t] += _times(run(libs[t]))
+                samples = in_turns({t: run(lib) for t, lib in libs.items()},
+                                   {"ms": _times}, ("other", "this", "this",
+                                                    "other"))["ms"]
                 ms = {t: statistics.median(v) for t, v in samples.items()}
                 print(json.dumps({
                     "size": size, "blocks": blocks.shape[0], "mode": mode,

@@ -23,15 +23,17 @@ import torch
 
 from .. import kernels
 from ..entropy.bpc_cuda import BYTES_PER_S, INT32_OPS_PER_S
+from ..transform.dwt_cuda import _on
 
 C = 128        # codeblock chunk
 CAP = 512      # tape row length
 ROWS = 32
 STEPS = 64
 # int32 operations of one output cell: v >> 1, v > 100 and their sum, the
-# STEPS accumulation adds, the fetched word's add; and of one column: the
+# shift that is the STEPS accumulation adds (64 wrapping adds of a step
+# are step << 6 mod 2^32), the fetched word's add; and of one column: the
 # window floor, the rank, the gather's index and row 0's doubling
-OPS_PER_CELL = 3 + STEPS + 1
+OPS_PER_CELL = 3 + 1 + 1
 OPS_PER_COLUMN = 4
 
 LAUNCHES = 0
@@ -101,17 +103,18 @@ def run(tape: torch.Tensor, base: torch.Tensor) -> torch.Tensor:
     return launch(tape, base)
 
 
-def launch(tape: torch.Tensor, base: torch.Tensor) -> torch.Tensor:
+def launch(tape: torch.Tensor, base: torch.Tensor, lib=None) -> torch.Tensor:
     """The kernel launch alone, for CUDA tensors that `check_inputs`
     accepted (its domain check reads the device, so a timing loop keeps it
-    out). Does not synchronise."""
+    out), on the tensors' device and its current stream. Does not
+    synchronise. The kernel moves 16-byte vectors where tape and base are
+    16-byte aligned, else words. `lib` is the kernel library to launch
+    (default: the package's own)."""
     global LAUNCHES
-    lib = kernels.library()
+    lib = lib or kernels.library()
     out = torch.empty((ROWS, C), dtype=torch.int32, device=tape.device)
-    # on the tensors' device and its current stream, whichever device is
-    # current
-    with torch.cuda.device(tape.device):
-        stream = torch.cuda.current_stream(tape.device).cuda_stream
+    ctx, stream = _on(tape.device)
+    with ctx:
         rc = lib.picsong_probe(tape.data_ptr(), base.data_ptr(),
                                out.data_ptr(), stream)
     LAUNCHES += 1

@@ -25,6 +25,7 @@ import torch
 
 from .. import kernels
 from ..entropy.bpc_cuda import BYTES_PER_S, INT32_OPS_PER_S
+from ..transform.dwt_cuda import _on
 from .probe import time_entry_point, wrap32
 
 C = 128           # codeblock chunk
@@ -103,17 +104,17 @@ def run(tape: torch.Tensor, amt: torch.Tensor) -> torch.Tensor:
     return launch(tape, amt)
 
 
-def launch(tape: torch.Tensor, amt: torch.Tensor) -> torch.Tensor:
+def launch(tape: torch.Tensor, amt: torch.Tensor, lib=None) -> torch.Tensor:
     """The kernel launch alone, for CUDA tensors that `check_inputs`
     accepted (its domain check reads the device, so a timing loop keeps it
-    out). Does not synchronise."""
+    out), on the tensors' device and its current stream. Does not
+    synchronise. `lib` is the kernel library to launch (default: the
+    package's own)."""
     global LAUNCHES
-    lib = kernels.library()
+    lib = lib or kernels.library()
     out = torch.empty((ROWS, C), dtype=torch.int32, device=tape.device)
-    # on the tensors' device and its current stream, whichever device is
-    # current
-    with torch.cuda.device(tape.device):
-        stream = torch.cuda.current_stream(tape.device).cuda_stream
+    ctx, stream = _on(tape.device)
+    with ctx:
         rc = lib.picsong_probe2(tape.data_ptr(), amt.data_ptr(),
                                 out.data_ptr(), stream)
     LAUNCHES += 1

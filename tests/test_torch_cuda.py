@@ -216,11 +216,13 @@ def test_kernel_wrappers_reject_bad_inputs(cuda):
                                *dargs, **kw, n_planes=n_planes)
 
 
-@pytest.mark.parametrize("case", ["probe_inputs", "edges"])
+@pytest.mark.parametrize("case", ["probe_inputs", "edges", "seed1",
+                                  "seed2"])
 def test_probe_kernels_match_plain(cuda, case):
     for module in (probe, probe2):
         args = (module.inputs(0) if case == "probe_inputs"
-                else module.edge_inputs())
+                else module.edge_inputs() if case == "edges"
+                else module.inputs(int(case[4:])))
         cpu = [torch.from_numpy(a) for a in args]
         before = module.LAUNCHES
         got = module.run(*(a.to(cuda) for a in cpu))
@@ -436,6 +438,60 @@ def test_launch_on_second_card_goes_to_its_stream(cuda):
     with torch.cuda.device(0):
         calls = _spied_round_trip(second)
     assert calls == [(torch.cuda.current_stream(second).cuda_stream, 1)] * 2
+
+
+def _spied_probes(device, stream=None):
+    """Both probe kernels on `device` (under `stream` if given) through
+    the spy; returns the spy's calls after checking the results against
+    the plain versions."""
+    spy = _Spy("picsong_probe")
+    got = []
+    with (torch.cuda.stream(stream) if stream is not None
+          else contextlib.nullcontext()):
+        for module in (probe, probe2):
+            cpu = [torch.from_numpy(a) for a in module.inputs(1)]
+            dargs = [a.to(device) for a in cpu]
+            got.append((module, cpu, dargs, module.launch(*dargs, lib=spy)))
+    torch.cuda.synchronize(device)
+    for module, cpu, dargs, out in got:
+        assert out.device == dargs[0].device
+        assert torch.equal(out.cpu(), module.plain(*cpu))
+    return spy.calls
+
+
+def test_probe_launch_goes_to_the_current_stream(cuda):
+    """Under a non-default current stream the probe kernels launch on that
+    stream, with the plain versions' results."""
+    side = torch.cuda.Stream(cuda)
+    calls = _spied_probes(cuda, side)
+    assert calls == [(side.cuda_stream, torch.cuda.current_device())] * 2
+
+
+def test_probe_launch_on_second_card_goes_to_its_stream(cuda):
+    """Tensors on cuda:1 while cuda:0 is current: each probe launches
+    under cuda:1 on cuda:1's current stream."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices; this machine has "
+                    f"{torch.cuda.device_count()}")
+    second = torch.device("cuda", 1)
+    with torch.cuda.device(0):
+        calls = _spied_probes(second)
+    assert calls == [(torch.cuda.current_stream(second).cuda_stream, 1)] * 2
+
+
+@pytest.mark.parametrize("skip", [1, 2, 3])
+def test_probe_kernels_on_misaligned_views(cuda, skip):
+    """Tape and its second argument as views `skip` words off 16-byte
+    alignment: K3 takes its word variant, and both probes still equal
+    their plain versions."""
+    for module in (probe, probe2):
+        cpu = [torch.from_numpy(a) for a in module.inputs(2)]
+        views = [_offset_view(a.to(cuda), skip) for a in cpu]
+        assert all(v.data_ptr() % 16 for v in views)
+        before = module.LAUNCHES
+        got = module.run(*views)
+        assert module.LAUNCHES == before + 1
+        assert torch.equal(got.cpu(), module.plain(*cpu))
 
 
 # -- X2 / X4: the transform kernels ------------------------------------------

@@ -161,8 +161,10 @@ def test_probe_bound_charges_the_words_the_output_reads(module, case):
         -2**31, 2**31, size=tape.shape, dtype=np.int64).astype(np.int32)
     other = torch.from_numpy(np.where(mask, tape, noise))
     assert torch.equal(module.plain(other, a), module.plain(t, a))
+    # K3's 64 accumulation adds are one shift (equal mod 2^32), so both
+    # probes move more than they compute
     bound, by = module.bound_ms(t, a)
-    assert bound > 0 and by == ("operations" if module is probe else "bytes")
+    assert bound > 0 and by == "bytes"
 
 
 @pytest.mark.parametrize("module", [probe, probe2])
