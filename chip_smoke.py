@@ -86,8 +86,8 @@ or of the JAX package `picsong_tpu` is imported:
 after the main path's timings, its device busy share (`busy_phase`):
 `obs.trace.device_trace` over one 2048^2 TorchCodec encode + decode and
 over one CLI round trip, the card's kernel and copy spans against the
-profiled wall and the unprofiled median, the trace naming the codec's
-stages;
+profiled wall and the unprofiled median, the trace naming every span
+of the codec's layers;
 on each path after the main one it also holds the BPC kernels equal to
 their plain versions on every component's codeblocks, at the path's
 n_planes and with the component's LUT; on the lossy ones it holds the
@@ -1561,7 +1561,7 @@ def busy_phase(dev, tag: str, codec, img, cli_round_trip,
     the card's kernel and copy spans) and span count, the share of the
     profiled wall and of the unprofiled median (the API round trip's
     here, ITERS times; the CLI's from phase 6); a trace without device
-    spans, or without the codec's stage names, fails."""
+    spans, or without every span of the codec's layers, fails."""
     import torch
 
     from picsong_tpu_torch.obs.trace import busy_ms, device_trace
@@ -1569,6 +1569,13 @@ def busy_phase(dev, tag: str, codec, img, cli_round_trip,
     def api_round_trip():
         codec.decode(codec.encode(img))
 
+    want = {"picsong/encode", "picsong/encode.upload",
+            "picsong/encode_planes", "picsong/x2", "picsong/x2.read_max",
+            "picsong/k1", "picsong/x3.pack", "picsong/x3.pack.read_total",
+            "picsong/encode.download", "picsong/decode",
+            "picsong/decode.upload", "picsong/x3.unpack",
+            "picsong/decode_planes", "picsong/k2", "picsong/x4",
+            "picsong/decode.download"}
     api_ms = statistics.median(host_ms(api_round_trip))
     tmp = tempfile.TemporaryDirectory()
     for label, fn, unprofiled in (
@@ -1589,13 +1596,13 @@ def busy_phase(dev, tag: str, codec, img, cli_round_trip,
         (trace,) = os.listdir(log_dir)
         with open(os.path.join(log_dir, trace)) as f:
             names = {e.get("name") for e in json.load(f)["traceEvents"]}
-        _require({"encode/dwt+bpc", "decode/bpc+idwt"} <= names,
-                 f"{label}: the trace names the codec's stages")
+        _require(want <= names, f"{label}: the trace names the codec's "
+                 "spans")
         print(f"{tag} busy share, {label} {SIZE}^2 wl={LEVELS} lossless: "
               f"device busy {busy:.4f} ms ({n_spans} kernel and copy spans) "
               f"in a profiled wall of {wall:.4f} ms: {busy / wall:.4f} of "
               f"it, {busy / unprofiled:.4f} of the unprofiled median "
-              f"{unprofiled:.4f} ms; the trace names the codec's stages")
+              f"{unprofiled:.4f} ms; the trace names the codec's spans")
     tmp.cleanup()
 
 

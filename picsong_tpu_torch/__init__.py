@@ -39,7 +39,8 @@ Layer map (mirrors picsong_tpu):
   tools/probe*.py     the probes' wrappers, plain versions, entry points
   tools/quality_report.py  QUALITY.md's tables (bytes, bpp, PSNR) from
                       TorchCodec; tools/lut_eval.py scores LUT folders
-  obs/trace.py        stage timers (NVTX ranges, profiler labels),
+  obs/trace.py        spans (profiler labels at each layer boundary
+                      while a profiler records), READBACKS,
                       device_trace (torch.profiler) and busy_ms
 
 Every function takes its device from its tensors or an explicit `device`

@@ -51,6 +51,7 @@ import torch
 from .. import kernels
 from ..core import spec
 from ..entropy.bpc_cuda import BYTES_PER_S, _check, _check_aligned
+from ..obs.trace import readback, spanned
 from ..transform.dwt_cuda import _device_type, _on
 
 HEADER_SHORTS = 9
@@ -100,7 +101,10 @@ def pack_streams_plain(streams: torch.Tensor, sizes: torch.Tensor,
     dev = streams.device
     counts = sizes.to(torch.int64) - 1
     ends = torch.cumsum(counts, 0)
-    total = payload if payload is not None else int(ends[-1]) if n else 0
+    total = payload or 0
+    if payload is None and n:
+        with readback("picsong/x3.pack.read_total"):
+            total = int(ends[-1])
     out = torch.full((stream_length(n, total),), -1, dtype=torch.int16,
                      device=dev)
     if header is not None:
@@ -173,6 +177,7 @@ def _check_payload(payload: int | None) -> None:
         raise ValueError(f"payload must be >= 0, got {payload}")
 
 
+@spanned("picsong/x3.pack")
 def pack_streams(streams: torch.Tensor, sizes: torch.Tensor,
                  header: np.ndarray | None, payload: int | None = None,
                  lib=None) -> torch.Tensor:
@@ -216,10 +221,13 @@ def pack_streams(streams: torch.Tensor, sizes: torch.Tensor,
     PACK_LAUNCHES += 1
     kernels.check(lib, rc, "pack launch")
     if payload is None:
-        return out[:stream_length(n, int(status[-1]))]
+        with readback("picsong/x3.pack.read_total"):
+            total = int(status[-1])
+        return out[:stream_length(n, total)]
     return out
 
 
+@spanned("picsong/x3.unpack")
 def unpack_streams(stream: torch.Tensor, n_blocks: int, payload: int,
                    lib=None) -> tuple[torch.Tensor, torch.Tensor]:
     """A packed codestream (int16 tensor) of `n_blocks` codeblocks with

@@ -36,7 +36,7 @@ from ..core.header import CodecConfig, pack_header
 from ..core.image_io import mirror_pad, sample_dtype
 from ..core.lut import LUTParams
 from ..entropy import bpc, bpc_cuda
-from ..obs.trace import StageTimers
+from ..obs.trace import readback, span, spanned
 from ..transform import dwt_cuda
 
 
@@ -82,7 +82,6 @@ class TorchCodec:
                             wavelet_levels=cfg.wavelet_levels,
                             coding_passes=cfg.coding_passes,
                             has_k=cfg.k_factor > 0)
-        self.timers = StageTimers(nvtx=self.device.type == "cuda")
 
     @property
     def n_components(self) -> int:
@@ -93,6 +92,7 @@ class TorchCodec:
         per-block arrays; the mode keywords are `_bpc_kw`."""
         return (self.luts[min(component, len(self.luts) - 1)], *self._meta)
 
+    @spanned("picsong/encode_planes")
     def encode_planes(self, samples: list[torch.Tensor]):
         """Device half of encode (TPUCodec._prep_* + _encode_plane): the
         padded (ah, aw) sample planes on the codec's device, one gray or
@@ -100,12 +100,15 @@ class TorchCodec:
         component, n_planes), streams on the device. Reads one scalar from
         the device: the coefficient maximum over all components."""
         blocks, max_mag = dwt_cuda.forward(samples, self.cfg)
-        n_planes = bpc.planes_for_magnitude(int(max_mag))
+        with readback("picsong/x2.read_max"):
+            max_mag = int(max_mag)
+        n_planes = bpc.planes_for_magnitude(max_mag)
         coded = [bpc_cuda.encode_blocks(b, *self._bpc_args(i),
                                         **self._bpc_kw, n_planes=n_planes)
                  for i, b in enumerate(blocks)]
         return coded, n_planes
 
+    @spanned("picsong/decode_planes")
     def decode_planes(self, coded) -> list[torch.Tensor]:
         """Device half of decode (TPUCodec._decode_plane + _finish_*):
         [(streams, int32 sizes, n_planes)] per component, on the device ->
@@ -117,6 +120,7 @@ class TorchCodec:
 
     # -- host-facing API ---------------------------------------------------
 
+    @spanned("picsong/encode")
     def encode(self, pixels) -> list[np.ndarray]:
         """(height, width) samples (gray) or [R, G, B] planes -> one packed
         uint16 codestream per component, the header on the first."""
@@ -124,24 +128,23 @@ class TorchCodec:
         if len(planes) != self.n_components:
             raise ValueError(f"expected {self.n_components} sample planes, "
                              f"got {len(planes)}")
-        with self.timers.stage("encode/upload"):
+        with span("picsong/encode.upload"):
             samples = [torch.from_numpy(mirror_pad(
                 np.asarray(p).astype(self.dtype, copy=False), self.aw,
                 self.ah)).to(self.device) for p in planes]
-        with self.timers.stage("encode/dwt+bpc"):
-            coded, n_planes = self.encode_planes(samples)
+        coded, n_planes = self.encode_planes(samples)
         out = []
         for i, (streams, sizes) in enumerate(coded):
-            with self.timers.stage("encode/pack"):
-                packed = pack.pack_streams(
-                    streams, sizes, pack_header(self.cfg) if i == 0 else None)
-            with self.timers.stage("encode/download"):
+            packed = pack.pack_streams(
+                streams, sizes, pack_header(self.cfg) if i == 0 else None)
+            with readback("picsong/encode.download"):
                 shorts = packed.cpu().numpy().view(np.uint16)
             bpc.check_planes_bound(*pack.block_fields(shorts, self.ncb),
                                    n_planes)
             out.append(shorts)
         return out
 
+    @spanned("picsong/decode")
     def decode(self, component_streams: list[np.ndarray]):
         """One packed codestream per component -> samples cropped to
         (height, width): one plane (gray) or [R, G, B]."""
@@ -153,16 +156,14 @@ class TorchCodec:
             shorts = np.ascontiguousarray(shorts, dtype=np.uint16)
             msb, sizes = pack.block_fields(shorts, self.ncb)
             n_planes = bpc.planes_for_streams(msb, sizes)
-            with self.timers.stage("decode/upload"):
+            with span("picsong/decode.upload"):
                 packed = torch.from_numpy(shorts.view(np.int16)).to(
                     self.device)
-            with self.timers.stage("decode/unpack"):
-                streams, sizes_d = pack.unpack_streams(
-                    packed, self.ncb, int(sizes.sum()) - self.ncb)
+            streams, sizes_d = pack.unpack_streams(
+                packed, self.ncb, int(sizes.sum()) - self.ncb)
             coded.append((streams, sizes_d, n_planes))
-        with self.timers.stage("decode/bpc+idwt"):
-            planes = self.decode_planes(coded)
-        with self.timers.stage("decode/download"):
+        planes = self.decode_planes(coded)
+        with readback("picsong/decode.download", len(planes)):
             planes = [p.cpu().numpy()[:self.cfg.height, :self.cfg.width]
                       for p in planes]
         return planes if self.cfg.is_rgb else planes[0]

@@ -23,6 +23,7 @@ from ..core import spec
 from ..core.lut import LUTParams
 
 from .. import kernels
+from ..obs.trace import spanned
 from . import bpc
 
 # the kernels' picsong::Mode values
@@ -123,6 +124,7 @@ def _stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+@spanned("picsong/k1")
 def encode_blocks(blocks, lut, ref_b, sig_b, sign_b, cp_sig_b, cp_sign_b,
                   k_over_l2, *, params: LUTParams, wavelet_levels: int,
                   coding_passes: int, has_k: bool, n_planes: int, lib=None):
@@ -156,6 +158,7 @@ def encode_blocks(blocks, lut, ref_b, sig_b, sign_b, cp_sig_b, cp_sign_b,
     return streams, sizes
 
 
+@spanned("picsong/k2")
 def decode_blocks(streams, sizes, lut, ref_b, sig_b, sign_b, cp_sig_b,
                   cp_sign_b, k_over_l2, *, params: LUTParams,
                   wavelet_levels: int, coding_passes: int, has_k: bool,

@@ -1,78 +1,99 @@
-"""Stage timers, profiler labels and the device trace.
+"""Spans, the read-back counter and the device trace.
 
 Counterpart of `picsong_tpu.obs.trace`:
 
-- `StageTimers.stage(name)` accumulates host wall-clock per named stage
-  and opens a `torch.profiler.record_function` of the same name, so that
-  stages show in a `device_trace` as the JAX stages' TraceAnnotations show
-  in a `jax.profiler` trace; when the timers belong to a CUDA device it
-  also opens a `torch.cuda.nvtx` range (the reference codec's own
-  instrumentation, read by CUDA's own profilers). With no profiler
-  active a `record_function` costs a few microseconds.
+- `span(name)` is a `torch.profiler.record_function` label while a
+  profiler records, and one shared no-op context otherwise: with no
+  profiler it costs the profiler's own enabled flag and a `with`.
+  `spanned(name)` puts a span around every call of a function. The
+  profiler keeps the spans in memory on the clock of the card's kernel
+  and memcpy spans and writes them out with its trace; a span opened in a
+  thread nests in that thread's open span. The program's spans, all under
+  `picsong/`, sit at each layer boundary of the main path: the codec's
+  `encode` / `decode` (with their `.upload` / `.download` children) and
+  `encode_planes` / `decode_planes`; the kernels' wrappers `x2`, `k1`,
+  `x3.pack`, `x3.unpack`, `k2`, `x4`; and the reads that block the host
+  on a device value: `x2.read_max`, `x3.pack.read_total` and the host
+  path's downloads.
+- `READBACKS` counts those blocking reads, always: `readback(name,
+  count)` is the span of such a read and adds `count`.
 - `device_trace(log_dir, device)` wraps `torch.profiler.profile` (the
-  counterpart of `jax.profiler.trace`) and writes a Chrome trace JSON
-  into `log_dir` on exit.
+  counterpart of `jax.profiler.trace`), every thread's spans included, and
+  writes a Chrome trace JSON into `log_dir` on exit.
 - `busy_ms(prof)` is the device's busy time in such a trace: the union of
   its kernel, memcpy and memset spans (`device_spans`).
 
-Wall-clock around asynchronous CUDA work measures the enqueue, not the
-device: a stage that needs device time ends in a synchronisation, is
-timed with CUDA events by its caller, or is read from a trace.
+A span around asynchronous CUDA work times the host's enqueue, not the
+device: the device's time is read from the trace.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import os
 import tempfile
-import time
-from collections import defaultdict
 
 import torch
+from torch.autograd import profiler as _profiler
+
+READBACKS = 0
+
+_OFF = contextlib.nullcontext()
 
 
-class StageTimers:
-    """Accumulated wall-clock per named stage (not thread-safe: one per
-    engine, like the reference's per-stream accumulators)."""
+def reset_readbacks() -> None:
+    global READBACKS
+    READBACKS = 0
 
-    def __init__(self, nvtx: bool = False):
-        self.nvtx = nvtx
-        self.totals: dict[str, float] = defaultdict(float)
-        self.counts: dict[str, int] = defaultdict(int)
 
-    @contextlib.contextmanager
-    def stage(self, name: str):
-        t0 = time.perf_counter()
-        with torch.profiler.record_function(name), (
-                torch.cuda.nvtx.range(name) if self.nvtx
-                else contextlib.nullcontext()):
-            yield
-        self.totals[name] += time.perf_counter() - t0
-        self.counts[name] += 1
+def span(name: str):
+    """A profiler label `name` around the block while a profiler records
+    (the flag is the profiler's own, set for every thread); else a shared
+    no-op context."""
+    if _profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return _OFF
 
-    def report(self) -> dict[str, dict[str, float]]:
-        return {name: {"seconds": self.totals[name], "calls": self.counts[name]}
-                for name in sorted(self.totals)}
 
-    def pretty(self) -> str:
-        lines = [f"{name:>24s}: {v['seconds']:.4f}s over {v['calls']} calls"
-                 for name, v in self.report().items()]
-        return "\n".join(lines)
+def spanned(name: str):
+    """Decorate a function so that each call runs in `span(name)`; with
+    no profiler recording, the call goes straight through after the
+    flag's test."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            if not _profiler._is_profiler_enabled:
+                return fn(*args, **kwargs)
+            with torch.profiler.record_function(name):
+                return fn(*args, **kwargs)
+        return call
+    return wrap
+
+
+def readback(name: str, count: int = 1):
+    """`span(name)` around `count` reads that block the host on the
+    device, added to `READBACKS`."""
+    global READBACKS
+    READBACKS += count
+    return span(name)
 
 
 @contextlib.contextmanager
 def device_trace(log_dir: str, device="cuda"):
-    """Profile the block: host activity always, the CUDA device's kernels
-    and copies when `device` is a CUDA device. Yields the profiler; on
-    exit writes its Chrome trace (a new `trace_*.json`, viewable in
-    Perfetto) into `log_dir`."""
+    """Profile the block: host activity in every thread always, the CUDA
+    device's kernels and copies when `device` is a CUDA device. Yields the
+    profiler; on exit writes its Chrome trace (a new `trace_*.json`,
+    viewable in Perfetto) into `log_dir`."""
+    from torch._C._profiler import _ExperimentalConfig
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
     if torch.device(device).type == "cuda":
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
-    with profile(activities=activities) as prof:
+    with profile(activities=activities, experimental_config=(
+            _ExperimentalConfig(profile_all_threads=True))) as prof:
         yield prof
     fd, path = tempfile.mkstemp(prefix="trace_", suffix=".json", dir=log_dir)
     os.close(fd)

@@ -63,6 +63,7 @@ from ..core import spec
 from ..core.geometry import codeblocks_to_plane, plane_to_codeblocks
 from ..core.header import CodecConfig
 from ..entropy.bpc_cuda import BYTES_PER_S, INT32_OPS_PER_S
+from ..obs.trace import spanned
 from . import dwt
 
 FORWARD_LAUNCHES = 0
@@ -356,6 +357,7 @@ def vector_block_loads(blocks: list[torch.Tensor]) -> bool:
     return all(b.data_ptr() % VECTOR_BYTES == 0 for b in blocks)
 
 
+@spanned("picsong/x2")
 def forward(samples: list[torch.Tensor], cfg: CodecConfig, lib=None):
     """X2: one gray or [R, G, B] (..., ah, aw) sample planes -> ([blocks
     (..., ncb, 64, 64) int32 per component], 0-dim int32 maximum of
@@ -407,6 +409,7 @@ def _check_blocks(blocks: list[torch.Tensor], cfg: CodecConfig):
     return lead, ah, aw
 
 
+@spanned("picsong/x4")
 def reverse(blocks: list[torch.Tensor], cfg: CodecConfig,
             lib=None) -> list[torch.Tensor]:
     """X4: per component the (..., ncb, 64, 64) int32 codeblocks -> one gray
@@ -541,6 +544,7 @@ def forward_shard_plain(planes: list[torch.Tensor], cfg: CodecConfig,
     return (ll, hl, lh, hh), (m if top is None else torch.maximum(top, m))
 
 
+@spanned("picsong/x2")
 def forward_shard(planes: list[torch.Tensor], cfg: CodecConfig, level: int,
                   first: int, r0: int, r1: int,
                   top: torch.Tensor | None = None, lib=None):
@@ -640,6 +644,7 @@ def reverse_shard_plain(bands, cfg: CodecConfig, level: int, first: int,
     return x
 
 
+@spanned("picsong/x4")
 def reverse_shard(bands, cfg: CodecConfig, level: int, first: int, r0: int,
                   r1: int, to_samples: bool = True, lib=None) -> torch.Tensor:
     """X4's shard mode: level `level` from the (comps, rows, w / 2) band
