@@ -40,9 +40,10 @@ _SIGNATURES = {
     "picsong_bpc_encode": [_P, _P, _I, *[_P] * 6, _I, _I, _I, _I, _I,
                            _P, _P, _P],
     # streams, sizes, lut, lut_len, ref_b, sig_b, sign_b, cp_sig_b,
-    # cp_sign_b, k_over_l2, n, n_planes, prec, stride, mode, coeffs, stream
+    # cp_sign_b, k_over_l2, n, n_planes, prec, stride, mode, coeffs,
+    # counts, stream
     "picsong_bpc_decode": [_P, _P, _P, _I, *[_P] * 6, _I, _I, _I, _I, _I,
-                           _P, _P],
+                           _P, _P, _P],
     # tape, base, out, stream
     "picsong_probe": [_P, _P, _P, _P],
     # tape, amt, out, stream

@@ -11,7 +11,9 @@ checkout's, on one card, in one process.
     python -m picsong_tpu_torch.tools.kernel_ab --other DIR --sass
 
 DIR is the root of another checkout (a `git archive` of the parent
-commit, say); its `picsong_tpu_torch/csrc` is built into `DIR/build/ab`.
+commit, say); its package is imported under another name and launches
+its own kernels through its own wrappers (built into
+`DIR/build/picsong_tpu_torch`).
 For each size (a gray 8-bit `goldens.make_image`, lossless 5/3, wl=5,
 neutral LUT) and each mode (cp2, cp3, bulk with -k 5), both trees' encode
 and decode kernels run on the same codeblocks, in turns (other, this,
@@ -970,7 +972,6 @@ def main(argv: list[str] | None = None) -> int:
 
     import torch
 
-    from .. import kernels
     from ..core.geometry import codeblock_bands
     from ..core.header import CodecConfig
     from ..engine import cli
@@ -998,12 +999,10 @@ def main(argv: list[str] | None = None) -> int:
         return _probes(os.path.abspath(args.other), card)
     if args.sass:
         return _sass(os.path.abspath(args.other))
-    other_dir = os.path.join(os.path.abspath(args.other), "build", "ab")
-    other_lib, _ = kernels.build(
-        build_dir=other_dir,
-        csrc_dir=os.path.join(os.path.abspath(args.other),
-                              "picsong_tpu_torch", "csrc"))
-    libs = {"other": kernels.load(other_lib), "this": kernels.library()}
+    _other_package(os.path.abspath(args.other))
+    # each tree's own wrapper, which builds and binds its own kernels
+    coders = {"other": importlib.import_module("ab_other.entropy.bpc_cuda"),
+              "this": bpc_cuda}
     dev = torch.device("cuda")
     if args.sweep:
         cfg = CodecConfig(width=2048, height=2048, wavelet_levels=5)
@@ -1020,12 +1019,12 @@ def main(argv: list[str] | None = None) -> int:
             a = (c._bpc_args()[0],
                  *(m[i:i + 1].expand(n).contiguous() for m in c._meta))
             row = {"n": n, "block": i, "magnitude": int(mag[i])}
-            for t, lib in libs.items():
-                s, z = bpc_cuda.encode_blocks(b, *a, **kw, lib=lib)
+            for t, coder in coders.items():
+                s, z = coder.encode_blocks(b, *a, **kw)
                 row[f"{t}_encode_ms"] = statistics.median(_times(
-                    lambda: bpc_cuda.encode_blocks(b, *a, **kw, lib=lib)))
+                    lambda: coder.encode_blocks(b, *a, **kw)))
                 row[f"{t}_decode_ms"] = statistics.median(_times(
-                    lambda: bpc_cuda.decode_blocks(s, z, *a, **kw, lib=lib)))
+                    lambda: coder.decode_blocks(s, z, *a, **kw)))
             row["size"] = int(z[0])
             print(json.dumps(row), flush=True)
         return 0
@@ -1040,12 +1039,11 @@ def main(argv: list[str] | None = None) -> int:
             (blocks,), mx = dwt_cuda.forward([img], cfg)
             n_planes = bpc.planes_for_magnitude(int(mx))
             a, kw = c._bpc_args(), dict(c._bpc_kw, n_planes=n_planes)
-            enc = {t: bpc_cuda.encode_blocks(blocks, *a, **kw, lib=lib)
-                   for t, lib in libs.items()}
+            enc = {t: coder.encode_blocks(blocks, *a, **kw)
+                   for t, coder in coders.items()}
             streams, sizes = enc["this"]
-            dec = {t: bpc_cuda.decode_blocks(streams, sizes, *a, **kw,
-                                             lib=lib)
-                   for t, lib in libs.items()}
+            dec = {t: coder.decode_blocks(streams, sizes, *a, **kw)
+                   for t, coder in coders.items()}
             torch.cuda.synchronize()
             if not (torch.equal(enc["this"][0], enc["other"][0])
                     and torch.equal(enc["this"][1], enc["other"][1])
@@ -1056,13 +1054,12 @@ def main(argv: list[str] | None = None) -> int:
                 return 1
             bound, by = bpc_cuda.bound_ms(blocks)
             for d in ("encode", "decode"):
-                def run(lib):
+                def run(coder):
                     if d == "encode":
-                        return lambda: bpc_cuda.encode_blocks(
-                            blocks, *a, **kw, lib=lib)
-                    return lambda: bpc_cuda.decode_blocks(
-                        streams, sizes, *a, **kw, lib=lib)
-                samples = in_turns({t: run(lib) for t, lib in libs.items()},
+                        return lambda: coder.encode_blocks(blocks, *a, **kw)
+                    return lambda: coder.decode_blocks(streams, sizes, *a,
+                                                       **kw)
+                samples = in_turns({t: run(c) for t, c in coders.items()},
                                    {"ms": _times}, ("other", "this", "this",
                                                     "other"))["ms"]
                 ms = {t: statistics.median(v) for t, v in samples.items()}

@@ -28,6 +28,7 @@ from picsong_tpu_torch import kernels
 from picsong_tpu_torch.entropy import bpc, bpc_cuda
 from picsong_tpu_torch.tools import goldens, probe, probe2
 from picsong_tpu_torch.transform import dwt_cuda
+from bpc_steps import step_counts
 from torch_twins import J
 
 pytestmark = pytest.mark.cuda
@@ -134,21 +135,97 @@ def _edge_blocks():
     return torch.from_numpy(blocks.reshape(8, 64, 64))
 
 
-@pytest.mark.parametrize("cp,k", [(2, 0.0), (3, 0.0), (2, 5.0)])
-def test_edge_blocks_match_plain(cuda, cp, k):
-    blocks = _edge_blocks()
-    levels = np.zeros(8, dtype=np.int32)
-    subbands = np.zeros(8, dtype=np.int32)
-    groups = PARAMS.n_bitplane_files if k > 0 else 1
+def _skip_blocks():
+    """Blocks for the cp2 decoder's bitmask paths, none raw with
+    `_skewed_lut`: every cell significant from plane 3 down (rows whose
+    SPP codes nothing at planes 2-0); one cell at 2^12 above sparse small
+    ones (MRP steps skipped but for its row in the top planes);
+    significance only in lanes 0 and 31 (columns 0, 1, 62, 63: the lanes
+    without a neighbour on one side), only in rows 0 and 63, and only on
+    that frame; and a 16-bit block with MSB 15. Signs are random."""
+    rng = np.random.default_rng(23)
+
+    def signed(mag):
+        return mag * np.where(rng.random(mag.shape) < 0.5, -1, 1)
+
+    def some(p, hi):
+        return np.where(rng.random((64, 64)) < p,
+                        signed(rng.integers(1, hi, size=(64, 64))), 0)
+
+    blocks = np.zeros((6, 64, 64), dtype=np.int32)
+    blocks[0] = signed(rng.integers(8, 256, size=(64, 64)))
+    blocks[1] = some(0.05, 4)
+    blocks[1, 40, 35] = -4096
+    lanes = np.zeros((64, 64), dtype=bool)
+    lanes[:, [0, 1, 62, 63]] = True
+    rows = np.zeros((64, 64), dtype=bool)
+    rows[[0, 63], :] = True
+    for i, where in ((2, lanes), (3, rows), (4, lanes | rows)):
+        blocks[i] = np.where(where, some(0.7, 1000), 0)
+    blocks[5] = some(0.1, 65536)
+    blocks[5, 7, 7] = 65535
+    return torch.from_numpy(blocks)
+
+
+def _skewed_lut(cp, groups):
+    """The neutral LUT with every significance probability at 120 / 128 for
+    a 0: an insignificant cell costs a tenth of a bit, so a block of 16
+    planes fits its stream (at 64 / 128 it is raw)."""
     lut = neutral_lut(PARAMS, WL, cp, groups)
+    off = PARAMS.section_offsets(WL, cp)
+    n_sig = PARAMS.section_size(PARAMS.ctx_significance, WL)
+    group = PARAMS.size_per_group(WL, cp)
+    for g in range(groups):
+        for name in ("sig", "cp_sig"):
+            if name in off:
+                at = g * group + off[name]
+                lut[at:at + n_sig] = 120
+    return lut
+
+
+@pytest.mark.parametrize("case", ["edges", "skips"])
+@pytest.mark.parametrize("cp,k", [(2, 0.0), (3, 0.0), (2, 5.0)])
+def test_edge_blocks_match_plain(cuda, cp, k, case):
+    blocks = _edge_blocks() if case == "edges" else _skip_blocks()
+    n = blocks.shape[0]
+    levels = np.zeros(n, dtype=np.int32)
+    subbands = np.zeros(n, dtype=np.int32)
+    groups = PARAMS.n_bitplane_files if k > 0 else 1
+    lut = (neutral_lut(PARAMS, WL, cp, groups) if case == "edges"
+           else _skewed_lut(cp, groups))
     meta = bpc._meta_args(levels, subbands, PARAMS, WL, cp, k)
     args = [torch.from_numpy(np.asarray(a)) for a in (lut, *meta)]
     kw = dict(params=PARAMS, wavelet_levels=WL, coding_passes=cp,
               has_k=k > 0)
     sizes = _check_kernels(cuda, blocks, args, kw, 16)
+    if case == "skips":
+        # none raw for the cp2 decoder (the bulk pass's stream of the 16-bit
+        # block is)
+        assert (cp, k) != (2, 0.0) or bool((sizes < 4096).all())
+        return
     assert int(sizes[0]) == 1 and int(sizes[3]) == 4096
     if (cp, k) == (2, 0.0):
         assert (int(sizes[4]), int(sizes[5])) == (4095, 4096)
+
+
+def test_decode_step_counts_match_the_coefficients(cuda):
+    """The cp2 decoder's step counters over a 2048^2 plane (lossless,
+    wl=5, neutral LUT) read exactly the steps counted from its
+    coefficients, the skipped ones included."""
+    cfg = CodecConfig(width=2048, height=2048, wavelet_levels=5)
+    codec = TorchCodec(cfg, [neutral_lut(PARAMS, 5, 2)], PARAMS, cuda)
+    img = torch.from_numpy(goldens.make_image(2048)).to(cuda)
+    (blocks,), mx = dwt_cuda.forward([img], cfg)
+    n_planes = bpc.planes_for_magnitude(int(mx))
+    a, kw = codec._bpc_args(), dict(codec._bpc_kw, n_planes=n_planes)
+    streams, sizes = bpc_cuda.encode_blocks(blocks, *a, **kw)
+    before = bpc_cuda.decode_step_counts()
+    out = bpc_cuda.decode_blocks(streams, sizes, *a, **kw)
+    after = bpc_cuda.decode_step_counts()
+    assert torch.equal(out, blocks)
+    want = step_counts(blocks.cpu().numpy(), n_planes, sizes.cpu().numpy())
+    assert (after[0] - before[0], after[1] - before[1]) == want
+    assert 0 < want[1] < want[0]
 
 
 def test_device_pack_matches_host_pack(cuda):
