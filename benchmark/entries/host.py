@@ -2,7 +2,7 @@
 out, and back, through `TorchCodec.encode` (sample planes as NumPy -> one
 packed uint16 codestream a component, the header on the first) and
 `TorchCodec.decode` (the codestreams -> the samples as NumPy), the codec
-built once."""
+built once. One frame a request."""
 
 from benchmark.harness.system import codec
 
@@ -14,11 +14,12 @@ class Entry:
         self.pool = [[p.cpu().numpy() for p in image]
                      for image in inputs.pool]
 
-    def encode(self, index: int):
+    def encode(self, images: list[int]):
+        (index,) = images
         image = self.pool[index]
         return self.codec.encode(image if self.rgb else image[0])
 
-    def decode(self, index: int, codestreams):
+    def decode(self, images: list[int], codestreams):
         planes = self.codec.decode(codestreams)
         return planes if self.rgb else [planes]
 

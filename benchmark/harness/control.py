@@ -4,8 +4,8 @@ program's place. Its answers must come out not correct; the limits of
 `judge.py` sit between what the program reads and what this reads.
 
 It codes the whole pool at set-up; each request then hands out the
-answers for its image, so a short window compares as many requests as a
-run does. The benchmark's own runs never use it: `run.py --system
+answers for its frames' images, so a short window compares as many frames
+as a run does. The benchmark's own runs never use it: `run.py --system
 control` does.
 """
 
@@ -19,15 +19,16 @@ class ControlEntry:
         self.coded = ReferenceCodec(cfg, luts, params, device,
                                     control=True).run(padded, out_dtype)
 
-    def encode(self, index: int):
-        return self.coded[index].codestreams
+    def encode(self, images: list[int]):
+        return [self.coded[i].codestreams for i in images]
 
-    def decode(self, index: int, codestreams):
-        return self.coded[index].decoded
+    def decode(self, images: list[int], codestreams):
+        return [self.coded[i].decoded for i in images]
 
     @staticmethod
-    def parts(codestreams, planes) -> list:
-        return [*codestreams, *planes]
+    def frames(images, codestreams, planes) -> list:
+        return [(image, [*c, *p])
+                for image, c, p in zip(images, codestreams, planes)]
 
     @staticmethod
     def to_host(parts):

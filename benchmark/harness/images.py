@@ -8,7 +8,8 @@ noise. Each plane of the pool has shifts (dx, dy) of its own, the same for
 every seed, since the shifts move the coding work; the seed draws the
 noise, by one `torch.Generator` on the device in one call a plane, and the
 order of the pool's images. So every seed gives the same work in another
-order.
+order. A request codes one image of the pool, or a mix's
+`frames_per_request` of them in turn (`of_request`).
 """
 
 from __future__ import annotations
@@ -26,6 +27,13 @@ def pool_size(plane_bytes: int, planes: int, pool: dict) -> int:
     samples hold at least `min_bytes` (more than the card's L2 cache)."""
     per_image = plane_bytes * planes
     return max(pool["min_images"], -(-pool["min_bytes"] // per_image))
+
+
+def of_request(request: int, frames: int, n_images: int) -> list[int]:
+    """The pool images request `request` codes, its frames in order: a
+    mix's `frames_per_request` of them, (request * frames + j) mod the
+    pool, so the requests walk the pool frame by frame."""
+    return [(request * frames + j) % n_images for j in range(frames)]
 
 
 def make_pool(seed: int, n_images: int, planes: int, height: int, width: int,

@@ -1,11 +1,12 @@
-"""Whether the window's outputs are correct: the sampled requests' packed
-codestreams and decoded samples against the plain reference's, exactly.
+"""Whether the window's outputs are correct: the sampled frames' packed
+codestreams and decoded samples against the plain reference's of each
+frame's own pool image, exactly.
 
 Two numbers are compared, each with the limit 0, since the configurations
 state an exact result (the codestream is the format, lossless decodes to
 its input, and the 9/7 path's arithmetic is fixed to the rounding):
 
-- `codestream_diff_shorts`: over the sampled requests and their
+- `codestream_diff_shorts`: over the sampled frames and their
   components, the shorts that differ from the reference's codestream
   (header, MSB and size pairs, payload, filler), a short missing or extra
   counted as one;
@@ -26,7 +27,7 @@ def _diff(a: np.ndarray, b: np.ndarray) -> int:
         + abs(a.size - b.size)
 
 
-def _request(codestreams, planes, ref) -> tuple[int, int]:
+def _frame(codestreams, planes, ref) -> tuple[int, int]:
     shorts = samples = 0
     if len(codestreams) != len(ref.codestreams):
         shorts += sum(c.size for c in ref.codestreams)
@@ -42,13 +43,14 @@ def _request(codestreams, planes, ref) -> tuple[int, int]:
 
 
 def compare(kept: list[tuple], expected: list) -> tuple[dict[str, int], int]:
-    """`kept`: (request, image, (codestreams, planes)) on the host;
-    `expected`: the reference's `Coded` of each pool image. Returns the
-    numbers compared and the count of sampled requests that differ."""
-    diffs = [_request(*out, expected[image]) for _, image, out in kept]
+    """`kept`: (request, image, (codestreams, planes)) a sampled frame, on
+    the host; `expected`: the reference's `Coded` of each pool image.
+    Returns the numbers compared, summed over the frames, and the count of
+    requests with a sampled frame that differs."""
+    diffs = [_frame(*out, expected[image]) for _, image, out in kept]
     return ({"codestream_diff_shorts": sum(d[0] for d in diffs),
              "decoded_diff_samples": sum(d[1] for d in diffs)},
-            sum(1 for d in diffs if any(d)))
+            len({r for (r, _, _), d in zip(kept, diffs) if any(d)}))
 
 
 def verdict(numbers: dict[str, int]) -> bool:

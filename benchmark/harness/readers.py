@@ -1,6 +1,10 @@
 """What the per-layer readers share: the run they read, and the time of a
 kernel and its share of the roofline.
 
+A request in the trace codes the mix's `frames_per_request` pool images
+(`images.of_request`): a roofline sums the reference's work over every
+frame, while the readers that report "a request" stay per request.
+
 A kernel's time in the window is the mean of its spans seen, matched by
 name, times the launches the program counted: the profiler can drop a
 span, never a launch. A kernel launches once or more a counted call (X2
@@ -16,6 +20,7 @@ import importlib
 import re
 from dataclasses import dataclass, field
 
+from .images import of_request
 from .trace import Trace, union_ns
 
 
@@ -30,11 +35,13 @@ class Run:
     expected: list               # the reference's `Coded` a pool image
     cfg: object                  # the reference's `Config`
     n_images: int
+    frames: int = 1              # pool images a request codes
     notes: list[str] = field(default_factory=list)
 
     def images(self) -> list[int]:
-        """The pool image of each request in the trace."""
-        return [i % self.n_images for i in range(len(self.trace.requests))]
+        """The pool image of every frame of every request in the trace."""
+        return [image for i in range(len(self.trace.requests))
+                for image in of_request(i, self.frames, self.n_images)]
 
 
 def kernel_ns(run: Run, kernel: str, pattern: str) -> float | None:
@@ -55,7 +62,8 @@ def kernel_ns(run: Run, kernel: str, pattern: str) -> float | None:
 
 def roofline_pct(run: Run, kernel: str, pattern: str) -> float | None:
     """The least time the window's launches of `kernel` need
-    (`roofline/<kernel>.py`, from the reference's work) over their time."""
+    (`roofline/<kernel>.py`, from the reference's work on every frame
+    coded) over their time."""
     took = kernel_ns(run, kernel, pattern)
     if took is None:
         return None

@@ -3,10 +3,13 @@ a traffic mix can name. This and the files it finds by name are the
 benchmark's whole contract with the program:
 
 - an entry is `benchmark/entries/<name>.py`, the name a mix gives under
-  `"entry"`: its `Entry(config, luts, params, device, inputs)` codes one
-  pool image a request (`encode`, `decode`), lists a request's outputs
-  (`parts`) and hands them over as NumPy codestreams and planes
-  (`to_host`);
+  `"entry"`: its `Entry(config, luts, params, device, inputs)` codes a
+  request's list of pool images, the mix's `frames_per_request` of them
+  (`encode(images)`, `decode(images, encoded)`), hands over the request's
+  outputs a frame at a time, each with its pool image (`frames(images,
+  encoded, decoded)` -> [(image, parts)]; an entry that codes one frame a
+  request may list them as one `parts(encoded, decoded)` instead), and
+  turns a frame's parts into NumPy codestreams and planes (`to_host`);
 - a kernel's launch counter is `benchmark/counters/<kernel>.py`, whose
   `launches()` reads the program's own count.
 

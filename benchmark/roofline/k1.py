@@ -4,6 +4,6 @@ from . import bpc
 
 
 def least_seconds(coded, cfg) -> float:
-    """The least time of one request's K1 launches."""
+    """The least time of K1's work on one frame, its components."""
     return sum(bpc.least_seconds(m, z, w)
                for m, z, w in zip(coded.msb, coded.nonzero, coded.words))

@@ -6,14 +6,15 @@
 From the root of a checkout. The cell (BENCHMARK.json) names a
 configuration (its file, and the LUT folder beside it) and a traffic mix
 (`traffic/<name>.json`, whose entry into the program is
-`entries/<name>.py`). Set-up makes the image pool from the seed on the
-card, builds the program's codec, and warms every shape the mix uses;
-then a closed loop runs for the window; then the plain reference codes the
-pool and the sampled outputs are compared with it. `--trace 0` prints the
-cell's end-to-end metrics, `--trace 1` its per-layer metrics from a
-`torch.profiler` trace of the window (`metrics/<name>.py`). The last line
-of standard output is the result's JSON object; the numbers compared,
-each beside its limit, end standard error.
+`entries/<name>.py`; a request codes the mix's `frames_per_request` pool
+images, one when it names none). Set-up makes the image pool from the seed
+on the card, builds the program's codec, and warms every shape the mix
+uses; then a closed loop runs for the window; then the plain reference
+codes the pool and the sampled frames are compared with it. `--trace 0`
+prints the cell's end-to-end metrics, `--trace 1` its per-layer metrics
+from a `torch.profiler` trace of the window (`metrics/<name>.py`). The
+last line of standard output is the result's JSON object; the numbers
+compared, each beside its limit, end standard error.
 
 `--device cpu` skips the look for a card and runs the program's plain
 PyTorch versions; the tests use it at tiny sizes, and `--bench` names
@@ -119,6 +120,10 @@ def main(argv=None) -> int:
     luts, params = load_luts(str(cell.config_dir / cell.config["lut_folder"]),
                              cfg.wavelet_levels)
     traffic = cell.traffic
+    frames = traffic.get("frames_per_request", 1)
+    if not isinstance(frames, int) or frames < 1:
+        raise ValueError(f"frames_per_request must be a whole number from "
+                         f"1 up, not {frames!r}")
     ah, aw = cfg.padded
     sample_bytes = 1 if cfg.bps <= 8 else 2
     n_images = images.pool_size(cfg.width * cfg.height * sample_bytes,
@@ -137,7 +142,7 @@ def main(argv=None) -> int:
                              device, system.Inputs(pool, padded,
                                                    reference.header(cfg)))
     reservoir = loop.Reservoir(traffic["keep"], args.seed)
-    warm_failed = loop.warm_up(entry, n_images, reservoir, device)
+    warm_failed = loop.warm_up(entry, n_images, frames, reservoir, device)
     setup_s = time.perf_counter() - T0
 
     before = system.counters()
@@ -147,12 +152,13 @@ def main(argv=None) -> int:
         if device.type == "cuda":
             activities.append(ProfilerActivity.CUDA)
         with profile(activities=activities) as prof:
-            window = loop.run(entry, n_images, args.seconds, reservoir,
-                              device)
+            window = loop.run(entry, n_images, frames, args.seconds,
+                              reservoir, device)
         tr = trace.read(prof)
         del prof
     else:
-        window = loop.run(entry, n_images, args.seconds, reservoir, device)
+        window = loop.run(entry, n_images, frames, args.seconds,
+                          reservoir, device)
     after = system.counters()
     peak = (torch.cuda.max_memory_allocated(device)
             if device.type == "cuda" else 0)
@@ -181,7 +187,7 @@ def main(argv=None) -> int:
     lines = []
     if args.trace:
         run = readers.Run(tr, {k: after[k] - before[k] for k in after},
-                          expected, cfg, n_images)
+                          expected, cfg, n_images, frames)
         metrics = {}
         for spec in cell.per_layer:
             try:
@@ -196,7 +202,7 @@ def main(argv=None) -> int:
         lo, hi = tr.window
         busy = trace.union_ns((s, e) for _, s, e in tr.spans)
     else:
-        mpix = n * cfg.width * cfg.height / 1e6
+        mpix = window.frames * cfg.width * cfg.height / 1e6
         values = {
             "mpix_s": mpix / window.seconds if window.seconds else 0.0,
             "encode_p95_ms": float(np.percentile(window.encode_s, 95)) * 1e3
@@ -234,8 +240,9 @@ def main(argv=None) -> int:
     for line in lines:
         print(line)
     words = sum(int(w.sum()) for coded in expected for w in coded.words)
-    print(f"{cell.name}: {n} requests in {window.seconds:.3f} s, "
-          f"{len(kept)} compared, set-up {setup_s:.3f} s; the pool's "
+    print(f"{cell.name}: {n} requests of {frames} frame(s) in "
+          f"{window.seconds:.3f} s, {len(kept)} frames compared, set-up "
+          f"{setup_s:.3f} s; the pool's "
           f"{n_images} images code to {words} words")
     for what, lat in (("encode", window.encode_s),
                       ("decode", window.decode_s)):

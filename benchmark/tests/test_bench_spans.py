@@ -192,7 +192,7 @@ def test_cell_spans(cuda, workload):
     metrics = {k: v["value"] for k, v in result["metrics"].items()}
     want = {m["name"] for m in SPAN_METRICS
             if workload in m.get("workloads", [workload])}
-    assert len(want) == 14 and want <= set(metrics)
+    assert want and want <= set(metrics)
     assert all(metrics[m] is not None for m in want)
     cell = next(w for w in BENCH["workloads"] if w["name"] == workload)
     config = next(c for c in BENCH["configs"] if c["name"] == cell["config"])
