@@ -254,45 +254,6 @@ __device__ __forceinline__ uint64_t warp_or(uint64_t v) {
          __reduce_or_sync(kFullMask, (uint32_t)v);
 }
 
-// The bits of the cp2 decoder's context word (MaskDecoder::spp_step): 0-2
-// the neighbour lane's column at rows r-1, r, r+1; 3-5 the lane's other
-// column at the same rows; 6 and 8 the cell's own column at r-1 and r+1
-// (bit 7, the cell itself, stays clear). kTopRows and kBottomRows are the
-// bits of rows r-1 and r+1, outside the block at r = 0 and r = 63.
-constexpr uint32_t kTopRows = 0x49u;
-constexpr uint32_t kBottomRows = 0x124u;
-// Its sign neighbours: left and right (bits 1 and 4), above and below (6
-// and 8).
-constexpr uint32_t kHorizontal = 0x12u;
-constexpr uint32_t kVertical = 0x140u;
-
-// sign_ctx without a branch, from the positive and the negative
-// significant neighbours in the context word's bits. Of two neighbours a
-// direction sums to > 0 when some are positive and none negative, to < 0
-// in the reverse case, else to 0. With h = 0, 3, 6 and v = 0, 1, 2 for a
-// horizontal and a vertical sum of 0, > 0, < 0, sign_ctx's value is entry
-// h + v of a table packed 3 bits an entry: 0 2 3, 4 6 0, 5 1 7.
-__device__ __forceinline__ int sign_context(uint32_t positive,
-                                            uint32_t negative) {
-  constexpr uint32_t kTable = 0x73468D0u;
-  const bool hp = positive & kHorizontal;
-  const bool hn = negative & kHorizontal;
-  const bool vp = positive & kVertical;
-  const bool vn = negative & kVertical;
-  const int h = hp && !hn ? 3 : (hn && !hp ? 6 : 0);
-  const int v = vp && !vn ? 1 : (vn && !vp ? 2 : 0);
-  return (int)(kTable >> (3 * (h + v))) & 7;
-}
-
-// A plane's four sign probabilities, held in registers.
-struct SignProbs {
-  int p0, p1, p2, p3;
-
-  __device__ __forceinline__ int at(int i) const {
-    return i & 2 ? (i & 1 ? p3 : p2) : (i & 1 ? p1 : p0);
-  }
-};
-
 // The stream words that the cp2 decoder may read next, in a ring of 64
 // shared words: slots [filled - 64, filled), with filled > counter + 32,
 // since a coder step reserves at most 32 slots past the counter. The next

@@ -12,10 +12,10 @@ is no path from a CUDA tensor to the plain version.
 
 `ENCODE_LAUNCHES` / `DECODE_LAUNCHES` count kernel launches by mode
 ("cp2", "cp3", "bulk"; one per call on CUDA), so that a run can show which
-variants its main path went through. The cp2 decode kernel also counts,
-on the card, the coder steps in scope (256 a coded plane of a block) and
-those it skipped because no lane codes there; `decode_step_counts` reads
-both totals.
+variants its main path went through. The cp2 kernels also count, on the
+card, the coder steps in scope (256 a coded plane of a block whose stream
+is not a raw copy) and those they skipped because no lane codes there;
+`encode_step_counts` and `decode_step_counts` read both totals of each.
 """
 
 from __future__ import annotations
@@ -42,8 +42,10 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 BYTES_PER_S = 3.35e12
 ENCODE_LAUNCHES = dict.fromkeys(MODES, 0)
 DECODE_LAUNCHES = dict.fromkeys(MODES, 0)
-# by device: the cp2 decoder's (steps in scope, steps skipped), int64
-_STEP_COUNTS: dict[torch.device, torch.Tensor] = {}
+# by kernel and device: the cp2 kernel's (steps in scope, steps skipped),
+# int64
+_STEP_COUNTS: dict[str, dict[torch.device, torch.Tensor]] = {
+    "encode": {}, "decode": {}}
 
 
 def reset_launches() -> None:
@@ -51,20 +53,29 @@ def reset_launches() -> None:
         counts.update(dict.fromkeys(MODES, 0))
 
 
-def decode_step_counts() -> tuple[int, int]:
-    """The cp2 decode kernel's coder steps in scope and steps skipped, over
-    every card and every launch so far; one read of each card's counters,
-    which waits for the work queued before it."""
-    total = sum((t.cpu() for t in _STEP_COUNTS.values()),
+def _step_totals(kernel: str) -> tuple[int, int]:
+    total = sum((t.cpu() for t in _STEP_COUNTS[kernel].values()),
                 torch.zeros(2, dtype=torch.int64))
     return int(total[0]), int(total[1])
 
 
-def _step_counts(device: torch.device) -> torch.Tensor:
-    counts = _STEP_COUNTS.get(device)
+def encode_step_counts() -> tuple[int, int]:
+    """The cp2 encode kernel's coder steps in scope and steps skipped, over
+    every card and every launch so far; one read of each card's counters,
+    which waits for the work queued before it."""
+    return _step_totals("encode")
+
+
+def decode_step_counts() -> tuple[int, int]:
+    """The same of the cp2 decode kernel."""
+    return _step_totals("decode")
+
+
+def _step_counts(kernel: str, device: torch.device) -> torch.Tensor:
+    counts = _STEP_COUNTS[kernel].get(device)
     if counts is None:
         counts = torch.zeros(2, dtype=torch.int64, device=device)
-        _STEP_COUNTS[device] = counts
+        _STEP_COUNTS[kernel][device] = counts
     return counts
 
 
@@ -174,7 +185,9 @@ def encode_blocks(blocks, lut, ref_b, sig_b, sign_b, cp_sig_b, cp_sign_b,
             blocks.data_ptr(), lut.data_ptr(), lut.numel(), *ptrs, n,
             n_planes, params.mult_precision,
             params.stride_per_group(wavelet_levels), MODES[mode],
-            streams.data_ptr(), sizes.data_ptr(), _stream(blocks.device))
+            streams.data_ptr(), sizes.data_ptr(),
+            _step_counts("encode", blocks.device).data_ptr(),
+            _stream(blocks.device))
     ENCODE_LAUNCHES[mode] += 1
     kernels.check(lib, rc, f"bpc_encode {mode} launch")
     return streams, sizes
@@ -207,7 +220,7 @@ def decode_blocks(streams, sizes, lut, ref_b, sig_b, sign_b, cp_sig_b,
             streams.data_ptr(), sizes.data_ptr(), lut.data_ptr(), lut.numel(),
             *ptrs, n, n_planes, params.mult_precision,
             params.stride_per_group(wavelet_levels), MODES[mode],
-            out.data_ptr(), _step_counts(streams.device).data_ptr(),
+            out.data_ptr(), _step_counts("decode", streams.device).data_ptr(),
             _stream(streams.device))
     DECODE_LAUNCHES[mode] += 1
     kernels.check(lib, rc, f"bpc_decode {mode} launch")

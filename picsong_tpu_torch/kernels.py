@@ -36,9 +36,10 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # name -> argument types; every C entry point returns a cudaError_t as int
 _SIGNATURES = {
     # blocks, lut, lut_len, ref_b, sig_b, sign_b, cp_sig_b, cp_sign_b,
-    # k_over_l2, n, n_planes, prec, stride, mode, streams, sizes, stream
+    # k_over_l2, n, n_planes, prec, stride, mode, streams, sizes, counts,
+    # stream
     "picsong_bpc_encode": [_P, _P, _I, *[_P] * 6, _I, _I, _I, _I, _I,
-                           _P, _P, _P],
+                           _P, _P, _P, _P],
     # streams, sizes, lut, lut_len, ref_b, sig_b, sign_b, cp_sig_b,
     # cp_sign_b, k_over_l2, n, n_planes, prec, stride, mode, coeffs,
     # counts, stream

@@ -23,9 +23,9 @@ JSON line per (size, mode, direction) with both trees' times, the bound
 (`bpc_cuda.bound_ms`) and what bounds it.
 
 `--sweep` instead times cp2 on one codeblock of the 2048^2 plane (the
-largest magnitude outside the LL band) copied n times, n from 1 to 4224:
-while the copies fit in one wave of resident CTAs, the time is one
-block's dependency chain.
+largest magnitude outside the LL band) copied n times, n from 1 to 16384
+(1280 and 16384: the benchmark cells' launches): while the copies fit in
+one wave of resident CTAs, the time is one block's dependency chain.
 
 `--layers` instead times the layers around the BPC kernels, each tree's
 own (the other tree's package imported under another name) on the same
@@ -91,13 +91,15 @@ the wrapper split: the host time of each part of one `launch` (and of
 back to back, median of 5, beside both trees' whole `launch` (medians
 over the LAYER_TURNS); one JSON line per part.
 
-`--sass` instead compiles both trees' `csrc/dwt_forward.cu` and
-`dwt_reverse.cu` to cubins (nvcc with the package's flags) and compares
-the SASS of X2's and X4's whole-plane variants instruction by
+`--sass` instead compiles both trees' `csrc/dwt_forward.cu`,
+`dwt_reverse.cu`, `bpc_decode.cu` and `bpc_encode.cu` to cubins (nvcc
+with the package's flags) and compares the SASS of X2's and X4's
+whole-plane variants and of every K2 and K1 variant instruction by
 instruction (`cuobjdump -sass`, addresses and encodings dropped): this
-tree's variants with kShard false against the other tree's of the same
-other template arguments. One JSON line per kernel: the variants, how
-many are the same, and the first differing instruction of each other.
+tree's variants (X2/X4's with kShard false) against the other tree's of
+the same other template arguments. One JSON line per kernel: the
+variants, how many are the same, and the first differing instruction of
+each other.
 Then it dumps both trees' `probe_kernel` and `probe2_kernel` (`probe.cu`,
 `probe2.cu`): a JSON line each with the counts of instructions, global
 loads and stores, shuffles and branches, and whether a branch goes back
@@ -121,7 +123,7 @@ import time
 
 BATCH = 20
 ITERS = 10
-SWEEP = (1, 33, 66, 132, 264, 528, 1056, 2112, 4224)
+SWEEP = (1, 33, 66, 132, 264, 528, 1056, 1280, 2112, 4224, 16384)
 # the host's clock drifts within a run, so the layers take more turns
 LAYER_TURNS = ("other", "this", "this", "other") * 4
 # X2's per-level split: (label, height, width, frames (0: an image))
@@ -894,8 +896,9 @@ def sass_summary(code: list) -> dict:
 
 
 def _sass(other_root: str) -> int:
-    """X2's and X4's whole-plane variants, this tree's against the other's
-    compiled from the same flags; then both trees' probe kernels."""
+    """X2's and X4's whole-plane variants and every variant of K1 and K2,
+    this tree's against the other's compiled from the same flags; then
+    both trees' probe kernels."""
     from .. import kernels
 
     nvcc = kernels.find_nvcc()
@@ -913,13 +916,15 @@ def _sass(other_root: str) -> int:
                        check=True, capture_output=True)
         return _sass_of(cubin, cuobjdump, addresses)
 
-    for name in ("forward", "reverse"):
+    for source in ("dwt_forward", "dwt_reverse", "bpc_decode",
+                   "bpc_encode"):
+        dwt = source.startswith("dwt")
         sass = {t: {_template_args(k): v
-                    for k, v in compiled(t, f"dwt_{name}").items()}
+                    for k, v in compiled(t, source).items()}
                 for t in trees}
         same, differing = 0, []
         for args, code in sorted(sass["this"].items()):
-            if args[-1] != "false":
+            if dwt and args[-1] != "false":
                 continue                    # a shard-mode variant
             want = sass["other"].get(args, sass["other"].get(args[:-1]))
             if want == code:
@@ -930,7 +935,8 @@ def _sass(other_root: str) -> int:
             differing.append({"variant": list(args), "first": first,
                               "this": code[first:first + 1],
                               "other": (want or [])[first:first + 1]})
-        print(json.dumps({"kernel": f"dwt_{name}", "whole_plane_variants":
+        print(json.dumps({"kernel": source, ("whole_plane_variants" if dwt
+                                             else "variants"):
                           same + len(differing), "same_sass": same,
                           "differing": differing}), flush=True)
     dumps = []

@@ -74,9 +74,11 @@ def _batch(seed, maxmag, n=64, cp=2, k=0.0):
     return torch.from_numpy(blocks), args, kw, n_planes
 
 
-def _check_kernels(cuda, blocks, args, kw, n_planes):
+def _check_kernels(cuda, blocks, args, kw, n_planes, exact=True):
     """Both kernels of the mode of `kw` against the plain versions, with
-    one launch each; returns the sizes."""
+    one launch each, and with `exact` the decoded blocks against `blocks`
+    but for the raw ones (not so where n_planes cuts a block's top planes);
+    returns the sizes."""
     mode = bpc_cuda.mode_of(kw["coding_passes"], kw["has_k"])
     want_s, want_n = bpc.encode_blocks_plain(blocks, *args, **kw,
                                              n_planes=n_planes)
@@ -94,7 +96,7 @@ def _check_kernels(cuda, blocks, args, kw, n_planes):
     assert torch.equal(out.cpu(), bpc.decode_blocks_plain(
         want_s, want_n, *args, **kw, n_planes=n_planes))
     raw = got_n.cpu() == 4096
-    assert torch.equal(out.cpu()[~raw], blocks[~raw])
+    assert not exact or torch.equal(out.cpu()[~raw], blocks[~raw])
     return got_n.cpu()
 
 
@@ -183,10 +185,61 @@ def _skewed_lut(cp, groups):
     return lut
 
 
-@pytest.mark.parametrize("case", ["edges", "skips"])
+def _mask_blocks(case):
+    """Blocks for the cp2 encoder's bitmask edges, and their n_planes:
+    `borders`, one significant cell alone at each corner (lanes 0 and 31,
+    rows 0 and 63) and in columns 1 and 62 beside them, then all six in one
+    block; `signs`, a column of negative cells, random signs at magnitudes
+    1-3 (every sign context occurs) and stripes of alternating sign;
+    `cut`, a block with MSB 17 among small cells, coded with 16 planes (its
+    top planes cut); `raw`, a block whose stream reaches 4096 words;
+    `wide`, magnitudes up to 2^23 - 1 (MSB 22, the words' last magnitude
+    bit) with 24 planes."""
+    rng = np.random.default_rng(29)
+    if case == "borders":
+        cells = ((0, 0, 5), (0, 63, -6), (63, 0, -7), (63, 63, 4),
+                 (0, 1, 3), (63, 62, -2))
+        blocks = np.zeros((len(cells) + 1, 64, 64), dtype=np.int32)
+        for i, (r, c, v) in enumerate(cells):
+            blocks[i, r, c] = blocks[-1, r, c] = v
+        return torch.from_numpy(blocks), 16
+    if case == "signs":
+        blocks = np.zeros((3, 64, 64), dtype=np.int32)
+        blocks[0, :, 10] = -7
+        blocks[0, 5, 11] = 2
+        blocks[1] = (rng.integers(1, 4, size=(64, 64))
+                     * np.where(rng.random((64, 64)) < 0.5, -1, 1))
+        blocks[2, :, ::2] = -9
+        blocks[2, :, 1::2] = 9
+        blocks[2, ::3] *= -1
+        return torch.from_numpy(blocks), 16
+    if case == "cut":
+        blocks = np.where(rng.random((1, 64, 64)) < 0.2,
+                          rng.integers(-20, 21, size=(1, 64, 64)), 0)
+        blocks[0, 30, 40] = (1 << 17) + 3
+        return torch.from_numpy(blocks.astype(np.int32)), 16
+    if case == "raw":
+        return torch.from_numpy(rng.integers(
+            -30000, 30001, size=(1, 64, 64), dtype=np.int32)), 16
+    blocks = np.where(rng.random((2, 64, 64)) < 0.05,
+                      rng.integers(1, 1 << 23, size=(2, 64, 64)), 0)
+    blocks[0, 3, 3] = (1 << 23) - 1
+    blocks[1, 60, 2] = -((1 << 22) + 12345)
+    blocks[1, 7, 9] = -(1 << 22)
+    return torch.from_numpy(blocks.astype(np.int32)), 24
+
+
+@pytest.mark.parametrize("case", ["edges", "skips", "borders", "signs", "cut",
+                                  "raw", "wide"])
 @pytest.mark.parametrize("cp,k", [(2, 0.0), (3, 0.0), (2, 5.0)])
 def test_edge_blocks_match_plain(cuda, cp, k, case):
-    blocks = _edge_blocks() if case == "edges" else _skip_blocks()
+    n_planes = 16
+    if case == "edges":
+        blocks = _edge_blocks()
+    elif case == "skips":
+        blocks = _skip_blocks()
+    else:
+        blocks, n_planes = _mask_blocks(case)
     n = blocks.shape[0]
     levels = np.zeros(n, dtype=np.int32)
     subbands = np.zeros(n, dtype=np.int32)
@@ -197,15 +250,46 @@ def test_edge_blocks_match_plain(cuda, cp, k, case):
     args = [torch.from_numpy(np.asarray(a)) for a in (lut, *meta)]
     kw = dict(params=PARAMS, wavelet_levels=WL, coding_passes=cp,
               has_k=k > 0)
-    sizes = _check_kernels(cuda, blocks, args, kw, 16)
+    sizes = _check_kernels(cuda, blocks, args, kw, n_planes,
+                           exact=case != "cut")
     if case == "skips":
         # none raw for the cp2 decoder (the bulk pass's stream of the 16-bit
         # block is)
         assert (cp, k) != (2, 0.0) or bool((sizes < 4096).all())
         return
+    if case != "edges":
+        # with cp2 only the raw case's stream is raw
+        assert (cp, k) != (2, 0.0) or bool((sizes < 4096).all()) == (
+            case != "raw")
+        return
     assert int(sizes[0]) == 1 and int(sizes[3]) == 4096
     if (cp, k) == (2, 0.0):
         assert (int(sizes[4]), int(sizes[5])) == (4095, 4096)
+
+
+def test_encode_step_counts_match_the_coefficients(cuda):
+    """The cp2 encoder's step counters over a random batch with an empty, a
+    raw and an MSB-0 block and one whose MSB (17) lies above n_planes - 1
+    read exactly the steps counted from its coefficients, the skipped ones
+    included and the raw block left out, as the decoder's."""
+    blocks, args, kw, n_planes = _batch(7, 200)
+    blocks[8] = 0
+    blocks[8, 12, 13] = -((1 << 17) + 3)
+    blocks[8, 40, 2] = 9
+    assert n_planes == 16
+    want_s, want_n = bpc.encode_blocks_plain(blocks, *args, **kw,
+                                             n_planes=n_planes)
+    dargs = [a.to(cuda) for a in args]
+    before = bpc_cuda.encode_step_counts()
+    got_s, got_n = bpc_cuda.encode_blocks(blocks.to(cuda), *dargs, **kw,
+                                          n_planes=n_planes)
+    after = bpc_cuda.encode_step_counts()
+    assert torch.equal(got_s.cpu(), want_s) and torch.equal(got_n.cpu(),
+                                                           want_n)
+    assert (int(want_n[3]), int(want_n[5])) == (1, 4096)
+    want = step_counts(blocks.numpy(), n_planes, want_n.numpy())
+    assert (after[0] - before[0], after[1] - before[1]) == want
+    assert 0 < want[1] < want[0]
 
 
 def test_decode_step_counts_match_the_coefficients(cuda):
