@@ -1,144 +1,58 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch/CUDA port (picsong_tpu_torch) on one NVIDIA GPU.
+"""The card's byte gate for the PyTorch/CUDA port (picsong_tpu_torch), on
+one NVIDIA GPU.
 
     python3 chip_smoke.py
 
 Builds the port's kernels from picsong_tpu_torch/csrc with nvcc (one
-compiler per source, in parallel), holds each kernel equal to its plain
-PyTorch version on the card, holds the port's codestreams and picked
-codeblocks to the NumPy oracle's SHA-256 digests recorded in
-picsong_tpu_torch/tools/goldens.py (tests/test_torch_goldens.py
-regenerates them from the oracle; the inputs' digests are checked first),
-and drives each of the port's paths through the CLI, reading the
-kernels' launch counts (by coding mode) around each path. Nothing of JAX
-or of the JAX package `picsong_tpu` is imported:
-- the transform kernels X2 and X4 (`transform/dwt_cuda.py`, `dwt_phase`)
-  against their plain versions, byte-equal (codeblocks, maximum,
-  samples) in every case of DWT_CASES: 5/3 and 9/7 at qs 1, 0.5 and 0.7,
-  wl 1-5, gray 8/12/16-bit signed and unsigned, RGB RCT and ICT at
-  2048x2560, 1920x1088, a (8, 1088, 1920) and a (4, 3, 2048, 4096) batch,
-  8192x8192, 1984x1088 at 6 levels (bands 31 and 62 words wide); X2 also
-  on a view whose first sample is not 16-byte aligned, X4 on codeblocks
-  whose first word is not (DWT_OFFSET: their scalar-load variants); then
-  their times and the torch ops' at DWT_TIMED, and X2's and X4's device
-  time by level at the first three (`tools/kernel_ab.py` level_split);
-- gray lossless 5/3, 2048x2048 at 5 wavelet levels, neutral and trained
-  LUTs (the main path; then every layer of it is timed);
-- the codestream pack and unpack X3 (`assembly/pack.py`, `pack_phase`,
-  `pack_check`): the kernels' codestream (with a header, with the filler,
-  with the payload given) and their unpack of it byte-equal to the plain
-  version on random and edge batches (N = 0 and 1, all empty, all raw
-  copies, mixed sizes, N not a multiple of the kernels' tile, payloads
-  starting at every residue of a 16-byte chunk; the unpack also from
-  views 1..7 shorts past a 16-byte boundary), on the main path's
-  streams, the 1080p video batch's and 8192^2's, timed at those three
-  (kernels, their device time in a CUDA graph, plain, bound);
-- the two probe kernels against their plain versions on the probes' own
-  inputs, seed 1, edge inputs and views one word off 16-byte alignment,
-  then the probe entry points;
-- gray lossy 9/7, 2048x2048 at 3 levels, qs 1 (BASELINE config 2),
-  neutral and trained lossy LUTs, plus a 512x512 byte check against the
-  oracle's codestream and decoded samples;
-- planar RGB 2048x2560 (the reference's image workload), lossless RCT and
-  lossy ICT;
-- 16-bit gray lossless, 2048x2048;
-- gray lossless 2048x2048 wl=5 with three coding passes (-cp 3) and with
-  complexity scalability (-k 5, the JAX bench's cs_k5_2048), neutral and
-  trained LUTs, and gray lossy 2048x2048 wl=3 -k 5 with the trained lossy
-  LUT, after random batches and a 512x512 wl=1 byte check against the
-  oracle in both modes;
-- 8192x8192 wl=5 (16384 codeblocks, a size that fills the card) in all
-  three modes: an encode -> decode round trip of the kernels equal to
-  the input blocks, 64 picked blocks equal to the plain coder, times;
-- video through the CLI (-video 1, `video_phase`): 1920x1080 gray, 100
-  frames, batch 8, with the neutral and the trained video LUTs, and
-  4096x2048 planar RGB, 16 frames, batch 4, all lossless wl=5: round
-  trips bit-exact, every frame's codestream equal to TorchCodec.encode
-  of the frame, one BPC launch per component and batch, the kernels on
-  64 picked blocks of a batch equal to the plain coder, the kernels'
-  time at the batch's shape, the engine's stage times and, from
-  torch.profiler, the card's busy time over one 1080p encode;
-- the distribution layer (`sharded_phase`), every shard on the card:
-  `ShardedCodec` at 2048x2048 wl=5 lossless on 2, 3 and 4 shards, lossy
-  2048x2048 wl=3 and RGB 2048x2560 lossy on 2, 16-bit lossy on 3,
-  1920x1080 on 4 (uneven rows) and two plans that gather the deep levels
-  on 4, each codestream equal to the unsharded card codestream and each
-  decode to the unsharded decode, one BPC launch per codeblock shard and
-  component, one launch of X2's and of X4's shard mode a shard and level
-  and no torch-op lifting, every shard-mode call byte-equal to its plain
-  version (also from inputs off 16-byte alignment); device encode /
-  decode and CLI round trips unsharded and on
-  2 and 4 shards; the CLI's -sharded 2 round trip; 1080p video (24
-  frames) with devices=2 against devices=1; two multi-host processes in
-  a gloo group on the card (this script with --multihost-worker), the
-  merged files equal to the single-host ones;
-- the quality tools (`quality_phase`): every row of
-  `tools/quality_report.py`'s report (QUALITY.md's tables: 512x512
-  natural, noisy and edges lossless wl=5 with the neutral and trained
-  LUTs, the natural image lossy over qs with the trained lossy LUT, and
-  2048x2048 natural lossless and lossy), one BPC encode and one decode
-  launch a row, held to the recorded bytes (QUALITY.md's lossless ones,
-  the oracle's lossy bytes and PSNR to two decimals) where the image's
-  digest matches, else ("input differs") to the port's own CPU row; then
-  `tools/lut_eval.py` on luts/trained_lossless at 512x512, its bpp equal
-  to the report's rows; the kernels against their plain versions and
-  timed at the rows' shapes;
-after the main path's timings, its device busy share (`busy_phase`):
-`obs.trace.device_trace` over one 2048^2 TorchCodec encode + decode and
-over one CLI round trip, the card's kernel and copy spans against the
-profiled wall and the unprofiled median, the trace naming every span
-of the codec's layers;
-on each path after the main one it also holds the BPC kernels equal to
-their plain versions on every component's codeblocks, at the path's
-n_planes and with the component's LUT; on the lossy ones it holds the
-card's quantized codeblocks (X2) and decoded samples (X4) equal to the
-plain version's on the host, and the CLI's decoded file equal to those
-samples. Then
-it times the device halves and CLI round trips of the paths (the two
-cli.main calls alone) and each kernel variant against its plain version.
-The probes' times stand beside the launch floor: a one-element torch op
-timed the same way; their device times (a CUDA graph of 20 launches,
-`kernel_ab.graph_ms`) beside the graph floor, that op's in the same
-kind of graph. Every comparison is exact except the lossy PSNR
-floors, which are stated where they are checked. The main path's layers
-include the device pack and unpack of the codestream (assembly/pack.py):
-only the packed bytes cross PCIe. Every CLI round trip must launch X2,
-X4, X3's pack and unpack and its mode's BPC kernels (counts reset before
-it, read after); every video and sharded workload one X3 pack a BPC
-encode launch and one unpack a decode launch. The
-kernels line's launches are the cp2 kernels', X2/X4's and X3's on the
-2048^2 CLI round trips (the main path) and each other mode's on its own
-2048^2 round trips; the cp2 entries add, under
-"video", each video workload's own launches (one CLI encode or decode,
-counts reset just before it) beside the kernels' time and bound at that
-workload's batch shape, under "sharded" each sharded workload's
-launches (counts reset just before its encode) beside the kernels' time
-and bound at the shape of its first shard's launch (X2 / X4: one image's
-shard-mode launches and their times beside X2's bound on the image), and
-under "quality"
-the quality report's rows' launches at 512^2 and at 2048^2 (counts reset
-just before each row and read after it, summed by size) and lut_eval's,
-beside the kernels' time and bound
-at the natural image's lossless launch of that size.
+compiler per source, in parallel), then checks on the card, with nothing
+of JAX or of the JAX package `picsong_tpu` imported:
+- the BPC kernels K1/K2 byte-equal to the plain coder on random and edge
+  batches of all three modes (cp2, cp3, and bulk for k > 0);
+- X2 and X4 (`dwt_phase`) byte-equal to their plain versions (codeblocks,
+  maximum, samples) in every case of DWT_CASES, and on the views of
+  DWT_OFFSET (their scalar- and word-load variants); lossless round trips
+  exact;
+- codestreams and codeblocks equal to the NumPy oracle's SHA-256 digests
+  recorded in picsong_tpu_torch/tools/goldens.py (which
+  tests/test_torch_goldens.py regenerates from the oracle; the inputs'
+  digests are checked first): 512^2 wl=1 in every mode, 512^2 wl=3 lossy,
+  and one codeblock of every level and subband of the 2048^2 planes;
+- CLI round trips at 2048^2: gray lossless with the neutral and trained
+  LUTs (the main path), lossy 9/7 wl=3 qs 1, -cp 3, -k 5 (lossless and
+  lossy), 16-bit, planar RGB 2048x2560 lossless and lossy. Each launches
+  X2, X4, X3's pack and unpack and its mode's BPC kernels and no other
+  mode's (counts reset before it, read after); lossless ones are
+  bit-exact, lossy ones above a PSNR floor and equal to the card's decode,
+  which is held to the host's; every component's BPC kernels equal the
+  plain coder at the path's n_planes and LUT;
+- X3 (`pack_phase`, `pack_check`) byte-equal to its plain version on
+  random and edge batches, views off 16-byte alignment, and the main
+  path's, a video batch's and 8192^2's streams;
+- the probes K3/K4 against their plain versions, and their entry points;
+- the main path's trace (`busy_phase`): it holds device spans and names
+  every span of the codec's layers;
+- 8192^2 wl=5 in all three modes: the kernels' round trip and BIG_PICKS
+  blocks against the plain coder;
+- video through the CLI (`video_phase`), the distribution layer
+  (`sharded_phase`: sharded images, frame-parallel and multi-host video)
+  and the quality tools (`quality_phase`), each byte-equal to its
+  unsharded or recorded result, with its launch counts.
+Every comparison is exact but the lossy PSNR floors, which are stated
+where they are checked. It times nothing but its phases' starts:
+`tools/kernel_ab.py` times a kernel against another tree's, and
+`benchmark/run.py` the system.
 
 Exits non-zero, printing no result, when there is no CUDA device or any
-check fails. Otherwise its last three lines are a JSON object with each
-kernel's launches, error, times and bound (the larger of its bytes over
-3.35 TB/s and its operations over 16.7 Tops/s int32 or 67 TFLOP/s
-float32: bpc_cuda.bound_ms, dwt_cuda.bound_ms, pack.bound_ms,
-probe.bound_ms, probe2.bound_ms; X2/X4 also at each DWT_TIMED shape, X3
-at its three timed shapes), the card's name
-and power limit, then
-{"ok": true, "device": {"platform": "gpu", ...}}.
+check fails. Otherwise its last two lines are the card's name and power
+limit, then {"ok": true, "device": {"platform": "gpu", ...}}.
 """
-
 from __future__ import annotations
 
 import contextlib
 import json
 import os
 import re
-import statistics
 import subprocess
 import sys
 import tempfile
@@ -146,12 +60,8 @@ import time
 
 SIZE = 2048
 LEVELS = 5
-ITERS = 10
-PLAIN_ITERS = 1               # the plain BPC coder takes seconds a call
-KERNEL_BATCH = 20             # back-to-back launches per kernel timing
 LOSSY_LEVELS = 3              # BASELINE config 2
 RGB_W, RGB_H = 2048, 2560     # the reference's image workload
-PROBE_CALLS = 200
 K = 5.0                       # the JAX bench's cs_k5_2048
 BIG = 8192                    # 16384 codeblocks at wl=5: fills the card
 BIG_PICKS = 64                # blocks of the 8192^2 plane held to plain
@@ -173,49 +83,6 @@ def psnr(a, b, peak: float = 255.0) -> float:
     err = np.asarray(a, np.float64) - np.asarray(b, np.float64)
     return float(10 * np.log10(peak ** 2 / max(float(np.mean(err * err)),
                                                  1e-12)))
-
-
-def device_ms(fn, iters=ITERS, warm=2, per=1):
-    """CUDA-event times of `fn`; with `per` > 1, of `per` back-to-back
-    calls divided by `per`, which keeps the wrapper's host time out of a
-    kernel's time."""
-    import torch
-    for _ in range(warm):
-        fn()
-    torch.cuda.synchronize()
-    out = []
-    for _ in range(iters):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(per):
-            fn()
-        b.record()
-        torch.cuda.synchronize()
-        out.append(a.elapsed_time(b) / per)
-    return out
-
-
-def host_ms(fn, iters=ITERS, warm=1):
-    """Host-clock times of `fn`, each between two synchronisations."""
-    import torch
-    for _ in range(warm):
-        fn()
-    out = []
-    for _ in range(iters):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        out.append((time.perf_counter() - t) * 1e3)
-    return out
-
-
-def kernel_ms(fn, iters=5):
-    """One kernel launch's time: the median over `iters` of KERNEL_BATCH
-    back-to-back launches."""
-    return statistics.median(device_ms(fn, iters=iters, warm=1,
-                                       per=KERNEL_BATCH))
 
 
 # the DWT phase's cases: (label, height, width, frames (0: an image), RGB,
@@ -267,10 +134,6 @@ DWT_CASES = (
 # first sample or word is not 16-byte aligned (their scalar-load
 # variants): (case label, values skipped)
 DWT_OFFSET = (("2048^2 16-bit 9/7 qs 1 wl=5", 1),)
-# the shapes whose X2/X4 times the phase reports (case labels), the first
-# the main path's; X2's and X4's per-level split at the first three
-DWT_TIMED = ("2048^2 5/3 wl=5", "(8, 1088, 1920) 5/3 wl=5",
-             "8192^2 5/3 wl=5", "RGB 2048x2560 ICT qs 1 wl=5")
 
 
 def offset_views(tensors, skip: int):
@@ -296,22 +159,20 @@ def bit_diff(a, b) -> int:
     return int((a.long() - b.long()).abs().max()) if a.numel() else 0
 
 
-def dwt_phase(dev, tag: str) -> dict:
+def dwt_phase(dev, tag: str) -> None:
     """X2 and X4 (`transform/dwt_cuda.py`) against their plain versions on
     the card in every case of DWT_CASES: the kernels' codeblocks, maximum
     and samples byte-equal to the torch ops' on the same inputs (X4 on the
-    kernels' codeblocks), lossless samples equal to the input. Then the
-    kernels' and the torch ops' times at DWT_TIMED. Returns the max abs
-    errors and the times by label."""
+    kernels' codeblocks), lossless samples equal to the input; then on the
+    views of DWT_OFFSET."""
     import numpy as np
     import torch
 
     from picsong_tpu_torch.core.header import CodecConfig
-    from picsong_tpu_torch.tools import goldens, kernel_ab
+    from picsong_tpu_torch.tools import goldens
     from picsong_tpu_torch.transform import dwt_cuda
 
     started = time.perf_counter()
-    err = {"forward": 0, "reverse": 0}
     cases, made = {}, {}
 
     def diff(a, b) -> int:
@@ -343,14 +204,12 @@ def dwt_phase(dev, tag: str) -> dict:
                  f"dwt {label}: X2 launched once")
         e = max([diff(b, p) for b, p in zip(blocks, want)]
                 + [diff(top, want_top)])
-        err["forward"] = max(err["forward"], e)
         _require(e == 0, f"dwt {label}: X2 kernel == plain (codeblocks, "
                  f"maximum), max abs err {e}")
         back = dwt_cuda.reverse(blocks, cfg)
         back_p = dwt_cuda.reverse_plain(blocks, cfg)
         torch.cuda.synchronize()
         e = max(diff(b, p) for b, p in zip(back, back_p))
-        err["reverse"] = max(err["reverse"], e)
         _require(e == 0, f"dwt {label}: X4 kernel == plain (samples), max "
                  f"abs err {e}")
         if not lossy:
@@ -370,7 +229,6 @@ def dwt_phase(dev, tag: str) -> dict:
                  f"dwt {label} offset by {skip}: X2 launched once")
         e = max([diff(b, p) for b, p in zip(blocks, want)]
                 + [diff(top, want_top)])
-        err["forward"] = max(err["forward"], e)
         _require(e == 0, f"dwt {label} offset by {skip}: X2 kernel == plain "
                  f"(codeblocks, maximum), max abs err {e}")
         views = offset_views(blocks, skip)
@@ -383,82 +241,26 @@ def dwt_phase(dev, tag: str) -> dict:
         _require(dwt_cuda.REVERSE_LAUNCHES == before + 1,
                  f"dwt {label} codeblocks offset by {skip}: X4 launched once")
         e = max(diff(b, p) for b, p in zip(back, back_p))
-        err["reverse"] = max(err["reverse"], e)
         _require(e == 0, f"dwt {label} codeblocks offset by {skip}: X4 "
                  f"kernel == plain (samples), max abs err {e}")
     print(f"{tag} DWT phase: X2 and X4 byte-equal to their plain versions "
           f"in {len(DWT_CASES)} cases and on {len(DWT_OFFSET)} "
-          f"16-byte-misaligned view(s) each (max abs err forward "
-          f"{err['forward']}, reverse {err['reverse']}), lossless round "
-          f"trips exact; {time.perf_counter() - started:.1f} s")
-    times = {}
-    for label in DWT_TIMED:
-        cfg, samples, blocks = cases[label]
-        bound, by = dwt_cuda.bound_ms(samples, cfg)
-        t = times[label] = {
-            "forward_ms": kernel_ms(lambda: dwt_cuda.forward(samples, cfg)),
-            "reverse_ms": kernel_ms(lambda: dwt_cuda.reverse(blocks, cfg)),
-            "forward_device_ms": kernel_ab.graph_ms(
-                lambda: dwt_cuda.forward(samples, cfg)),
-            "reverse_device_ms": kernel_ab.graph_ms(
-                lambda: dwt_cuda.reverse(blocks, cfg)),
-            "forward_plain_ms": statistics.median(device_ms(
-                lambda: dwt_cuda.forward_plain(samples, cfg), iters=3,
-                warm=1)),
-            "reverse_plain_ms": statistics.median(device_ms(
-                lambda: dwt_cuda.reverse_plain(blocks, cfg), iters=3,
-                warm=1)),
-            "bound_ms": bound, "bound_by": by}
-        print(f"{tag} dwt {label}: X2 {t['forward_ms']:.4f} ms, X4 "
-              f"{t['reverse_ms']:.4f} ms ({KERNEL_BATCH} back-to-back calls); "
-              f"the kernels' device time {t['forward_device_ms']:.4f} / "
-              f"{t['reverse_device_ms']:.4f} ms a call (CUDA graph); "
-              f"plain {t['forward_plain_ms']:.4f} / "
-              f"{t['reverse_plain_ms']:.4f} ms; bound {bound:.5f} ms ({by}), "
-              f"share {bound / t['forward_ms']:.4f} / "
-              f"{bound / t['reverse_ms']:.4f}")
-    # X2's and X4's device time by level: wl = 1 .. 5 on the same planes,
-    # 5/3 and 9/7 qs 1, the differences (tools/kernel_ab.py level_split)
-    split = {"forward": {}, "reverse": {}}
-    for label in DWT_TIMED[:3]:
-        _, samples, _ = cases[label]
-        for d, name in (("forward", "X2"), ("reverse", "X4")):
-            for lossy in (False, True):
-                wavelet = "9/7 qs 1" if lossy else "5/3"
-                levels = split[d][(label, wavelet)] = kernel_ab.level_split(
-                    dwt_cuda, samples[0], lossy, reverse=d == "reverse")
-                print(f"{tag} dwt {label}: {name} {wavelet} by level (device "
-                      f"ms, levels 0..{len(levels) - 1}): "
-                      + " / ".join(f"{v:.4f}" for v in levels)
-                      + f" = {sum(levels):.4f}")
-    print(f"{tag} DWT phase done in {time.perf_counter() - started:.1f} s")
-    return {"err": err, "times": times, "split": split}
+          "16-byte-misaligned view(s) each, lossless round trips exact; "
+          f"{time.perf_counter() - started:.1f} s")
 
 
-def pack_results() -> dict:
-    """The pack phase's record: max abs errors of the X3 kernels against
-    their plain version, and their times by shape label."""
-    return {"err": {"pack": 0, "unpack": 0}, "cases": 0, "times": {}}
-
-
-def pack_check(tag: str, label: str, streams, sizes, header, res: dict,
-               timed: bool = False, views: bool = False) -> None:
+def pack_check(label: str, streams, sizes, header,
+               views: bool = False) -> None:
     """X3 (`assembly/pack.py`) on one batch of streams on the card: the
     kernels' codestream (with `header`, with the filler, with the payload
     given) and their unpack of it (streams and sizes) byte-equal to the
     plain version on the same card tensors; the unpack equal to the
     streams and sizes packed. With `views`, also the unpack of the
     codestream held in views 1..7 shorts past a 16-byte boundary (as
-    `join_frames` and the sharded uploads may hand it over). With
-    `timed`: the kernels' time over
-    KERNEL_BATCH back-to-back calls (payload given, so no read) and their
-    device time in a CUDA graph (`kernel_ab.graph_ms`), the plain version's
-    (median of 3), the pack with its one read on the host clock, and the
-    bound, into res["times"][label]."""
+    `join_frames` and the sharded uploads may hand it over)."""
     import torch
 
     from picsong_tpu_torch.assembly import pack
-    from picsong_tpu_torch.tools import kernel_ab
 
     def diff(a, b) -> int:
         _require(a.shape == b.shape, f"X3 {label}: shapes {tuple(a.shape)} "
@@ -470,7 +272,6 @@ def pack_check(tag: str, label: str, streams, sizes, header, res: dict,
     for h, p in ((header, None), (None, None), (header, payload)):
         got = pack.pack_streams(streams, sizes, h, payload=p)
         e = diff(got, pack.pack_streams_plain(streams, sizes, h, p))
-        res["err"]["pack"] = max(res["err"]["pack"], e)
         _require(e == 0, f"X3 {label}: pack kernel == plain (header "
                  f"{h is not None}, payload given {p is not None}), max abs "
                  f"err {e}")
@@ -478,7 +279,6 @@ def pack_check(tag: str, label: str, streams, sizes, header, res: dict,
     want = pack.unpack_streams_plain(got, n, payload)
     torch.cuda.synchronize()
     e = max(diff(a, b) for a, b in zip(back, want))
-    res["err"]["unpack"] = max(res["err"]["unpack"], e)
     _require(e == 0, f"X3 {label}: unpack kernel == plain, max abs err {e}")
     _require(torch.equal(back[0], streams) and torch.equal(back[1], sizes),
              f"X3 {label}: unpack(pack(streams)) == streams, sizes")
@@ -492,46 +292,12 @@ def pack_check(tag: str, label: str, streams, sizes, header, res: dict,
         want = pack.unpack_streams_plain(held, n, payload)
         torch.cuda.synchronize()
         e = max(diff(a, b) for a, b in zip(back, want))
-        res["err"]["unpack"] = max(res["err"]["unpack"], e)
         _require(e == 0 and torch.equal(back[0], streams),
                  f"X3 {label}: unpack of a view {k} shorts past a 16-byte "
                  f"boundary == plain, max abs err {e}")
-    res["cases"] += 1
-    if not timed:
-        return
-
-    def do_pack():
-        return pack.pack_streams(streams, sizes, header, payload=payload)
-
-    def do_unpack():
-        return pack.unpack_streams(got, n, payload)
-
-    bound = pack.bound_ms(n, payload)
-    t = res["times"][label] = {"codeblocks": n, "payload": payload}
-    for d, fn, plain in (
-            ("pack", do_pack, lambda: pack.pack_streams_plain(
-                streams, sizes, header, payload)),
-            ("unpack", do_unpack, lambda: pack.unpack_streams_plain(
-                got, n, payload))):
-        t[d] = {"ms": kernel_ms(fn), "device_ms": kernel_ab.graph_ms(fn),
-                "plain_ms": statistics.median(device_ms(plain, iters=3,
-                                                        warm=1)),
-                "bound_ms": bound[d][0], "bound_by": bound[d][1]}
-    t["pack"]["one_read_host_ms"] = statistics.median(host_ms(
-        lambda: pack.pack_streams(streams, sizes, header)))
-    print(f"{tag} X3 {label}: {n} codeblocks, {payload} payload words; "
-          + "; ".join(f"{d} kernels {v['ms']:.4f} ms a call "
-                      f"({KERNEL_BATCH} back to back), device "
-                      f"{v['device_ms']:.4f} ms (CUDA graph), plain "
-                      f"{v['plain_ms']:.4f} "
-                      f"ms, bound {v['bound_ms']:.5f} ms ({v['bound_by']}), "
-                      f"share {v['bound_ms'] / v['ms']:.4f}"
-                      for d, v in t.items() if d in ("pack", "unpack"))
-          + f"; pack with its one read {t['pack']['one_read_host_ms']:.4f} "
-          "ms (host clock)")
 
 
-def pack_phase(dev, tag: str, res: dict) -> None:
+def pack_phase(dev, tag: str) -> None:
     """X3 against its plain version on random and edge batches: N = 0 and
     1, all empty blocks, all raw copies (16-bit words up to 0xFFFF), mixed
     sizes with both ends, a batch that is not a multiple of the tile of 8
@@ -564,17 +330,16 @@ def pack_phase(dev, tag: str, res: dict) -> None:
                                      dtype=np.int32)
         streams[:, 0] = np.where(sizes == 1, 32,
                                  rng.integers(0, 16, size=n))
-        pack_check(tag, f"{kind} N={n}", torch.from_numpy(streams).to(dev),
-                   torch.from_numpy(sizes).to(dev), header, res,
+        pack_check(f"{kind} N={n}", torch.from_numpy(streams).to(dev),
+                   torch.from_numpy(sizes).to(dev), header,
                    views=kind in ("mixed", "alignments"))
-    print(f"{tag} X3 pack phase: {res['cases']} random and edge batches "
-          f"byte-equal to the plain version both ways (max abs err pack "
-          f"{res['err']['pack']}, unpack {res['err']['unpack']}); "
+    print(f"{tag} X3 pack phase: {seed + 1} random and edge batches "
+          "byte-equal to the plain version both ways; "
           f"{time.perf_counter() - started:.1f} s")
 
 
 # the video workloads: (name, width, height, frames, batch, RGB, LUT
-# folders); the first folder's run is also timed through the engine's API
+# folders); the first folder's run also goes through the engine's API
 VIDEO = (
     # the README's video example and BASELINE config 4
     ("1080p gray", 1920, 1080, 100, 8, False,
@@ -584,23 +349,20 @@ VIDEO = (
 )
 
 
-def video_phase(dev, tag: str, err: dict, x3: dict) -> dict:
+def video_phase(dev, tag: str) -> None:
     """Each VIDEO workload, lossless wl=LEVELS, through `cli.main -video 1`:
     inputs from `goldens.make_frame` (a seed, integer arithmetic); for
     each LUT folder, one BPC encode and one decode launch per component
-    and batch (counts reset before each CLI call and read after it; the
-    first folder's counts are the workload's launches); the decoded file
-    equal to the input; every
-    frame's codestream equal to `TorchCodec.encode` of that frame; one X3
-    pack a BPC encode launch and one unpack a decode launch. With
-    the first folder: the kernels on the first batch's codeblocks
-    (component 0, B * ncb blocks) held to their plain versions on
-    BIG_PICKS blocks spread over the batch (max errors into `err`), their
-    time per launch over KERNEL_BATCH back-to-back launches and their
-    bound; two encode -> decode runs through the engine's API with its
-    stage times; on the first workload, one encode under torch.profiler
-    for the card's busy time, and X3 (`pack_check`) on the first batch's
-    streams, timed into `x3`. Returns the numbers by workload."""
+    and batch, and one X3 pack a BPC encode launch and one unpack a decode
+    launch (counts reset before each CLI call and read after it); the
+    decoded file equal to the input; every frame's codestream equal to
+    `TorchCodec.encode` of that frame. With the first folder: the kernels
+    on the first batch's codeblocks (component 0, B * ncb blocks) in a
+    round trip and on BIG_PICKS blocks spread over the batch held to the
+    plain coder; an encode -> decode through the engine's API equal to the
+    CLI's files; on the first workload, X3 (`pack_check`) on the first
+    batch's streams and torch.profiler's record of device work over one
+    encode."""
     import numpy as np
     import torch
 
@@ -622,21 +384,9 @@ def video_phase(dev, tag: str, err: dict, x3: dict) -> dict:
         with open(path, "rb") as f:
             return f.read()
 
-    def stats_line(what, st, n):
-        print(f"{tag} {what}: {st.frames} frames in {st.wall_s:.4f} s = "
-              f"{n / st.wall_s:.2f} frames/s (compute {st.compute_s:.4f} s = "
-              f"{n / st.compute_s:.2f} frames/s; download {st.download_s:.4f}"
-              f" s, reader stall {st.reader_stall_s:.4f} s, writer stall "
-              f"{st.writer_stall_s:.4f} s, writer busy {st.writer_busy_s:.4f}"
-              f" s; {st.batches} batches of {st.batch}, n_planes "
-              f"{st.n_planes})")
-
-    out = {}
     for name, w, h, n, batch, rgb, folders in VIDEO:
         n_comp = 3 if rgb else 1
         n_batches = -(-n // batch)
-        res = out[name] = {"frames": n, "batch": batch,
-                           "batches": n_batches}
         tmp = tempfile.TemporaryDirectory()
         raw = os.path.join(tmp.name, "in.raw")
         with open(raw, "wb") as f:
@@ -650,19 +400,16 @@ def video_phase(dev, tag: str, err: dict, x3: dict) -> dict:
             label = f"video {name} {folder}"
             enc = os.path.join(tmp.name, f"{folder}.enc")
             dec = os.path.join(tmp.name, f"{folder}.raw")
-            run = {}
             for d, argv in (("encode", ["-i", raw, "-o", enc, *geo, "-wl",
                                         str(LEVELS), "-frames", str(n)]),
                             ("decode", ["-i", enc, "-o", dec])):
                 bpc_cuda.reset_launches()
                 pack.reset_launches()
-                t = time.perf_counter()
                 _require(cli.main(["-cd", "0" if d == "encode" else "1",
                                    *argv, "-video", "1", "-numberOfStreams",
                                    str(batch), "-LUTFolder", lut,
                                    "--device", str(dev)]) == 0,
                          f"{label}: CLI {d}")
-                run[d] = (time.perf_counter() - t) * 1e3
                 counts = (bpc_cuda.ENCODE_LAUNCHES if d == "encode"
                           else bpc_cuda.DECODE_LAUNCHES)
                 want = dict.fromkeys(counts, 0)
@@ -674,9 +421,6 @@ def video_phase(dev, tag: str, err: dict, x3: dict) -> dict:
                 _require(x3_d == n_batches * n_comp,
                          f"{label}: X3 {'un' if d == 'decode' else ''}pack "
                          f"launches {x3_d}, one per component and batch")
-                res.setdefault("launches", {}).setdefault(d, counts["cp2"])
-                res.setdefault("x3_launches", {}).setdefault(
-                    "pack" if d == "encode" else "unpack", x3_d)
             _require(read(dec) == read(raw),
                      f"{label}: CLI round trip bit-exact")
             cfg = unpack_header(read_header_shorts(enc))
@@ -694,15 +438,11 @@ def video_phase(dev, tag: str, err: dict, x3: dict) -> dict:
                         enc, int(offsets[k]), int(sizes[k])), want[c]),
                         f"{label}: frame {i} component {c} codestream == "
                         "TorchCodec.encode of the frame")
-            print(f"{tag} {label}: {n} frames, batch {batch}, CLI encode "
-                  f"{run['encode']:.4f} ms, decode {run['decode']:.4f} ms "
-                  f"({os.path.getsize(enc)} B); round trip bit-exact; every "
+            print(f"{tag} {label}: {n} frames, batch {batch}, "
+                  f"{os.path.getsize(enc)} B; round trip bit-exact; every "
                   "frame's codestream == TorchCodec.encode of the frame; "
-                  f"BPC launches {n_batches * n_comp} per direction "
+                  f"BPC and X3 launches {n_batches * n_comp} per direction "
                   f"({n_comp} per batch)")
-            res[folder] = {"cli_encode_ms": run["encode"],
-                           "cli_decode_ms": run["decode"],
-                           "bytes": os.path.getsize(enc)}
             if folder != folders[0]:
                 continue
             # the kernels at the video batch's shape: component 0 of the
@@ -725,66 +465,39 @@ def video_phase(dev, tag: str, err: dict, x3: dict) -> dict:
             s_p, z_p = bpc.encode_blocks_plain(blocks[idx], *sub, **kw)
             e = max(int((s_p.long() - s_k[idx].long()).abs().max()),
                     int((z_p.long() - z_k[idx].long()).abs().max()))
-            err["cp2"]["encode"] = max(err["cp2"]["encode"], e)
             _require(e == 0, f"{label}: {BIG_PICKS} picked blocks of a batch, "
                      f"encode kernel == plain, max err {e}")
             o_p = bpc.decode_blocks_plain(s_k[idx], z_k[idx], *sub, **kw)
             e = int((o_p.long() - blocks[idx].long()).abs().max())
-            err["cp2"]["decode"] = max(err["cp2"]["decode"], e)
             _require(e == 0, f"{label}: {BIG_PICKS} picked blocks, plain "
                      "decode of the kernel's streams == input")
             if name == VIDEO[0][0]:
-                pack_check(tag, f"video {name} batch of {batch}", s_k, z_k,
-                           None, x3, timed=True)
-            bound, by = bpc_cuda.bound_ms(blocks)
-            k_enc = kernel_ms(lambda: bpc_cuda.encode_blocks(blocks, *a, **kw))
-            k_dec = kernel_ms(lambda: bpc_cuda.decode_blocks(s_k, z_k, *a,
-                                                             **kw))
-            res["kernel"] = {"codeblocks": blocks.shape[0], "encode_ms": k_enc,
-                             "decode_ms": k_dec, "bound_ms": bound,
-                             "bound_by": by}
+                pack_check(f"video {name} batch of {batch}", s_k, z_k, None)
             print(f"{tag} {label}: {blocks.shape[0]} codeblocks a launch, "
                   f"n_planes {n_pl}; kernels' round trip == input, "
-                  f"{BIG_PICKS} picked blocks byte-equal to plain; BPC encode "
-                  f"kernel {k_enc:.4f} ms, decode {k_dec:.4f} ms a launch "
-                  f"({KERNEL_BATCH} back to back, median of 5); bound "
-                  f"{bound:.5f} ms ({by}), share {bound / k_enc:.4f} / "
-                  f"{bound / k_dec:.4f}")
+                  f"{BIG_PICKS} picked blocks byte-equal to plain")
             del blocks, s_k, z_k, bc
-            # the engine's API, twice: its stage times
+            # the engine's API: the CLI's bytes both ways
             enc2 = os.path.join(tmp.name, "api.enc")
             dec2 = os.path.join(tmp.name, "api.raw")
-            for r in range(2):
-                st = video.encode_video(raw, enc2, cfg, luts, params, n,
-                                        batch=batch, device=dev)
-                stats_line(f"{label} encode_video run {r + 1}", st, n)
-                _require(read(enc2) == read(enc), f"{label}: API == CLI bytes")
-                res[f"encode run {r + 1}"] = st.as_dict()
-                st = video.decode_video(enc2, dec2, cfg, luts, params,
-                                        batch=batch, device=dev)
-                stats_line(f"{label} decode_video run {r + 1}", st, n)
-                _require(read(dec2) == read(raw), f"{label}: API decode")
-                res[f"decode run {r + 1}"] = st.as_dict()
+            video.encode_video(raw, enc2, cfg, luts, params, n, batch=batch,
+                               device=dev)
+            _require(read(enc2) == read(enc), f"{label}: API == CLI bytes")
+            video.decode_video(enc2, dec2, cfg, luts, params, batch=batch,
+                               device=dev)
+            _require(read(dec2) == read(raw), f"{label}: API decode")
             if name == VIDEO[0][0]:
                 from torch.profiler import ProfilerActivity, profile
                 with profile(activities=[ProfilerActivity.CPU,
                                          ProfilerActivity.CUDA]) as prof:
-                    st = video.encode_video(raw, enc2, cfg, luts, params, n,
-                                            batch=batch, device=dev)
-                busy, n_spans = busy_ms(prof)
-                wall = res["encode run 2"]["wall_s"] * 1e3
-                _require(n_spans > 0, f"{label}: torch.profiler recorded "
-                         "device activity")
-                res["busy_ms"] = busy
-                print(f"{tag} {label}: torch.profiler over one "
-                      f"encode_video: device busy {busy:.4f} ms "
-                      f"({n_spans} kernel and copy spans) in a profiled "
-                      f"wall of {st.wall_s * 1e3:.4f} ms; busy share "
-                      f"{busy / (st.wall_s * 1e3):.4f} of the profiled "
-                      f"wall, {busy / wall:.4f} of run 2's unprofiled "
-                      f"wall ({wall:.4f} ms)")
+                    video.encode_video(raw, enc2, cfg, luts, params, n,
+                                       batch=batch, device=dev)
+                _require(busy_ms(prof)[1] > 0, f"{label}: torch.profiler "
+                         "recorded device activity")
+            print(f"{tag} {label}: the engine's API gives the CLI's files"
+                  + ("; torch.profiler records its device work"
+                     if name == VIDEO[0][0] else ""))
         tmp.cleanup()
-    return out
 
 
 # the sharded workloads (`sharded_phase`): shard counts of the 2048^2
@@ -836,8 +549,8 @@ def multihost_worker(argv: list[str]) -> int:
     """One host of the multi-host run (`chip_smoke.py --multihost-worker
     RANK HOSTS PORT DIR DEVICE WIDTH HEIGHT FRAMES BATCH LEVELS`): joins
     the gloo group at 127.0.0.1:PORT, encodes and decodes its slab of
-    DIR/in.raw (lossless, neutral LUT) on DEVICE, after one untimed
-    round, and prints its stats as one JSON line after "MULTIHOST "."""
+    DIR/in.raw (lossless, neutral LUT) on DEVICE, and prints its launches
+    as one JSON line after "MULTIHOST "."""
     rank, hosts, port, d, device = (int(argv[0]), int(argv[1]), argv[2],
                                     argv[3], argv[4])
     w, h, n, batch, levels = (int(x) for x in argv[5:10])
@@ -856,24 +569,15 @@ def multihost_worker(argv: list[str]) -> int:
     _require(mh.init_distributed(f"127.0.0.1:{port}", hosts, rank)
              == (rank, hosts), "process group")
     try:
-        # a first, untimed round: a process's first CUDA work loads its
-        # context and modules, which the single-host walls do not include
-        mh.encode_video_multihost(f"{d}/in.raw", f"{d}/warm.enc", cfg, luts,
-                                  params, n, batch=batch, device=device)
-        mh.decode_video_multihost(f"{d}/warm.enc", f"{d}/warm.raw", cfg,
-                                  luts, params, batch=batch, device=device)
         bpc_cuda.reset_launches()
         pack.reset_launches()
-        enc = mh.encode_video_multihost(f"{d}/in.raw", f"{d}/mh.enc", cfg,
-                                        luts, params, n, batch=batch,
-                                        device=device)
+        mh.encode_video_multihost(f"{d}/in.raw", f"{d}/mh.enc", cfg, luts,
+                                  params, n, batch=batch, device=device)
         enc_launches = bpc_cuda.ENCODE_LAUNCHES["cp2"]
-        dec = mh.decode_video_multihost(f"{d}/mh.enc", f"{d}/mh.raw", cfg,
-                                        luts, params, batch=batch,
-                                        device=device)
+        mh.decode_video_multihost(f"{d}/mh.enc", f"{d}/mh.raw", cfg, luts,
+                                  params, batch=batch, device=device)
         print("MULTIHOST " + json.dumps({
-            "rank": rank, "frames": enc.frames,
-            "encode_wall_s": enc.wall_s, "decode_wall_s": dec.wall_s,
+            "rank": rank,
             "launches": {"encode": enc_launches,
                          "decode": bpc_cuda.DECODE_LAUNCHES["cp2"]},
             "x3_launches": {"pack": pack.PACK_LAUNCHES,
@@ -883,11 +587,11 @@ def multihost_worker(argv: list[str]) -> int:
     return 0
 
 
-def shard_checks(label: str, calls) -> dict:
+def shard_checks(label: str, calls) -> None:
     """Each shard-mode call in `calls` (`recording`'s of X2's and X4's
     `forward_shard` / `reverse_shard`) again on its inputs, and on copies
     of them one value past a 16-byte boundary, == its plain version on
-    the same inputs -> the max abs errors (X2, X4)."""
+    the same inputs."""
     import torch
 
     from picsong_tpu_torch.transform import dwt_cuda
@@ -918,36 +622,9 @@ def shard_checks(label: str, calls) -> dict:
     _require(e == {"forward": 0, "reverse": 0},
              f"{label}: X2/X4 shard modes == plain at every shard and "
              f"level, aligned and not; max abs err {e}")
-    return e
 
 
-def shard_times(calls, planes) -> dict:
-    """The shard-mode calls of one image (`recording`'s): CUDA events
-    around them (medians of 5), their device time (a CUDA graph), their
-    plain versions' time (median of 3), and X2's bound on the image's
-    sample `planes`."""
-    from picsong_tpu_torch.tools import kernel_ab
-    from picsong_tpu_torch.transform import dwt_cuda
-    bound, by = dwt_cuda.bound_ms(planes, calls[0][1][1])
-    t = {"bound_ms": bound, "bound_by": by}
-    for d, fn, plain, k in (
-            ("forward", dwt_cuda.forward_shard,
-             dwt_cuda.forward_shard_plain, 6),
-            ("reverse", dwt_cuda.reverse_shard,
-             dwt_cuda.reverse_shard_plain, 7)):
-        mine = [a[:k] for n, a, _ in calls if n == f"{d}_shard"]
-
-        def run(f, mine=mine):
-            return lambda: [f(*a) for a in mine]
-        t[f"{d}_ms"] = statistics.median(device_ms(run(fn), iters=5,
-                                                   warm=1))
-        t[f"{d}_device_ms"] = kernel_ab.graph_ms(run(fn))
-        t[f"{d}_plain_ms"] = statistics.median(device_ms(
-            run(plain), iters=3, warm=1))
-    return t
-
-
-def sharded_phase(dev, tag: str, err: dict, card: str) -> dict:
+def sharded_phase(dev, tag: str) -> None:
     """The distribution layer on the card (`dist/`), every shard on `dev`:
     - `ShardedCodec` at 2048^2 wl=5 lossless on 2, 3 and 4 shards, 2048^2
       wl=3 lossy and RGB 2048x2560 lossy (trained lossy LUT) on 2, 16-bit
@@ -965,25 +642,19 @@ def sharded_phase(dev, tag: str, err: dict, card: str) -> dict:
       shard-mode call of the round trip again on its inputs, and on
       copies of them off 16-byte alignment (the scalar- and word-load
       variants), byte-equal to its plain version (bands and maximum,
-      rows or samples); the shard-mode calls of one image timed against
-      their plain versions, with X2's bound; the BPC kernels on shard
-      0's codeblocks timed, with their bound; on 2 shards, BIG_PICKS of
-      them held to the plain coder;
-    - device encode / decode and the CLI round trip at 2048^2 wl=5,
-      unsharded and on 2 and 4 shards, in one call, beside the card's
-      name and power limit;
+      rows or samples); the BPC kernels' round trip on shard 0's
+      codeblocks and, on 2 lossless shards, BIG_PICKS of them held to the
+      plain coder;
     - the CLI's -sharded 2 round trip at 2048^2 wl=5: the unsharded CLI's
       file, a bit-exact decode, 2 BPC launches and 10 of X2's and X4's
       shard modes a direction;
-    - 1080p video, SHARDED_VIDEO frames, devices=2 against devices=1
-      (two turns): equal files and `_SIZE`, bit-exact decodes, one launch
-      per share and batch;
+    - 1080p video, SHARDED_VIDEO frames, devices=2 against devices=1:
+      equal files and `_SIZE`, bit-exact decodes, one launch per share
+      and batch, the kernels' round trip on a share's batch;
     - multi-host: HOSTS processes in a gloo group on the card
       (`multihost_worker`): the merged file equal to the single-host one,
-      the merged decode to the input, the `ScalingReport` efficiency
-      against the single-host walls.
-    Returns the kernels' sharded entries, the shard modes' entries and
-    errors, and the times."""
+      the merged decode to the input, one launch per slab batch, and the
+      kernels' round trip on a worker's batch."""
     import numpy as np
     import torch
 
@@ -991,30 +662,25 @@ def sharded_phase(dev, tag: str, err: dict, card: str) -> dict:
     from picsong_tpu_torch.core.header import CodecConfig
     from picsong_tpu_torch.core.image_io import (mirror_pad, read_pgm,
                                                  write_pgm)
-    from picsong_tpu_torch.dist.multihost import ScalingReport
     from picsong_tpu_torch.dist.sharded import (ShardedCodec, placement,
                                                 shares)
     from picsong_tpu_torch.engine import cli, video
     from picsong_tpu_torch.engine.batch import BatchCodec
     from picsong_tpu_torch.engine.pipeline import TorchCodec
     from picsong_tpu_torch.entropy import bpc, bpc_cuda
-    from picsong_tpu_torch.tools import goldens, kernel_ab
+    from picsong_tpu_torch.tools import goldens
     from picsong_tpu_torch.transform import dwt, dwt_cuda
 
     def read(path):
         with open(path, "rb") as f:
             return f.read()
 
-    def stat(samples):
-        return {"median_ms": statistics.median(samples),
-                "min_ms": min(samples), "max_ms": max(samples)}
-
     def kernels_at(label, blocks, args, kw, picks=False):
         """The cp2 kernels on these blocks: round trip (a raw copy, size
         4096, keeps 16-bit words, as in the reference: those blocks are
         held to the plain decoder of the same streams, as
         tests/test_torch_cuda.py does), optionally BIG_PICKS blocks
-        against the plain coder, times and bound."""
+        against the plain coder."""
         s_k, z_k = bpc_cuda.encode_blocks(blocks, *args, **kw)
         back = bpc_cuda.decode_blocks(s_k, z_k, *args, **kw)
         raw = z_k == 4096
@@ -1034,19 +700,10 @@ def sharded_phase(dev, tag: str, err: dict, card: str) -> dict:
             s_p, z_p = bpc.encode_blocks_plain(blocks[idx], *sub, **kw)
             e = max(int((s_p.long() - s_k[idx].long()).abs().max()),
                     int((z_p.long() - z_k[idx].long()).abs().max()))
-            err["cp2"]["encode"] = max(err["cp2"]["encode"], e)
             _require(e == 0, f"{label}: picked blocks, encode == plain")
             o_p = bpc.decode_blocks_plain(s_k[idx], z_k[idx], *sub, **kw)
             e = int((o_p.long() - blocks[idx].long()).abs().max())
-            err["cp2"]["decode"] = max(err["cp2"]["decode"], e)
             _require(e == 0, f"{label}: picked blocks, plain decode == input")
-        bound, by = bpc_cuda.bound_ms(blocks)
-        return {"codeblocks": blocks.shape[0],
-                "encode_ms": kernel_ms(
-                    lambda: bpc_cuda.encode_blocks(blocks, *args, **kw)),
-                "decode_ms": kernel_ms(
-                    lambda: bpc_cuda.decode_blocks(s_k, z_k, *args, **kw)),
-                "bound_ms": bound, "bound_by": by}
 
     def only_cp2(counts, want, what):
         _require(counts == dict(dict.fromkeys(counts, 0), cp2=want),
@@ -1060,8 +717,6 @@ def sharded_phase(dev, tag: str, err: dict, card: str) -> dict:
                 bpc_cuda.DECODE_LAUNCHES["cp2"])
         _require(got == want, f"{what}: X3 launches {got}, want {want}")
 
-    out = {"workloads": [], "times": {}, "dwt": [],
-           "dwt_err": {"forward": 0, "reverse": 0}}
     img = goldens.make_image(SIZE)
     rgb = [goldens.make_image(RGB_H, seed=s, width=RGB_W) for s in (5, 6, 7)]
     uw, uh, un = UNEVEN
@@ -1139,24 +794,13 @@ def sharded_phase(dev, tag: str, err: dict, card: str) -> dict:
             _require(all(np.array_equal(p, q) for p, q in zip(
                 planes, pixels if c.is_rgb else [pixels])),
                 f"{label}: decode bit-exact")
-        e = shard_checks(label, calls)
-        for d in e:
-            out["dwt_err"][d] = max(out["dwt_err"][d], e[d])
-        up = codec.upload(pixels)
-        whole = [torch.empty((codec.ah, codec.aw), dtype=up[0][0].dtype,
-                             device="meta")] * n_comp
-        xt = shard_times(calls, whole)
-        out["dwt"].append({"workload": f"{name}, {n} shards", "shards": n,
-                           "launches": level_launches, **xt})
+        shard_checks(label, calls)
         del calls
-        blocks, tops = codec.tile_planes(up)
+        blocks, tops = codec.tile_planes(codec.upload(pixels))
         s0 = codec.blocks[0][0]
         kw = dict(codec._kw, n_planes=codec._n_planes(tops))
-        k = kernels_at(label, blocks[0][0], codec._bpc_args(s0, 0), kw,
-                       picks=(n == 2 and not c.is_lossy))
-        out["workloads"].append({
-            "workload": f"{name}, {n} shards", "shards": n,
-            "launches": {"encode": enc["cp2"], "decode": dec["cp2"]}, **k})
+        kernels_at(label, blocks[0][0], codec._bpc_args(s0, 0), kw,
+                   picks=(n == 2 and not c.is_lossy))
         print(f"{tag} {label} ({placement(codec.devices)}, rows "
               f"{[r1 - r0 for r0, r1 in codec.rows]}, levels by shards "
               f"{[len(sp) for sp in codec._plan]}): "
@@ -1164,19 +808,11 @@ def sharded_phase(dev, tag: str, err: dict, card: str) -> dict:
               f"codestream; decode == unsharded"
               + ("" if c.is_lossy else " == input")
               + f"; launches {enc['cp2']} / {dec['cp2']} (shards x "
-              f"components); shard 0: {k['codeblocks']} codeblocks, "
-              f"kernels {k['encode_ms']:.4f} / {k['decode_ms']:.4f} ms, "
-              f"bound {k['bound_ms']:.5f} ms ({k['bound_by']}); X2 / X4 "
-              f"shard modes: {level_launches} launches each way, byte-"
-              f"equal to plain (and off 16 bytes), one image's calls "
-              f"{xt['forward_ms']:.4f} / {xt['reverse_ms']:.4f} ms, device "
-              f"{xt['forward_device_ms']:.4f} / "
-              f"{xt['reverse_device_ms']:.4f} ms, plain "
-              f"{xt['forward_plain_ms']:.4f} / {xt['reverse_plain_ms']:.4f}"
-              f" ms, bound {xt['bound_ms']:.5f} ms ({xt['bound_by']}); no "
-              "torch-op lifting")
+              f"components); shard 0's kernels' round trip; X2 / X4 shard "
+              f"modes: {level_launches} launches each way, byte-equal to "
+              "plain (and off 16 bytes); no torch-op lifting")
 
-    # times at 2048^2 wl=5: unsharded, then 2 and 4 shards, in one call
+    # the CLI -sharded 2 at 2048^2 wl=5 against the unsharded CLI
     tmp = tempfile.TemporaryDirectory()
     src = os.path.join(tmp.name, "in.pgm")
     write_pgm(src, img)
@@ -1210,37 +846,12 @@ def sharded_phase(dev, tag: str, err: dict, card: str) -> dict:
              == read(enc1 + "_SIZE"), "CLI -sharded 2 file == unsharded")
     _require(np.array_equal(read_pgm(dec2), img),
              "CLI -sharded 2 round trip bit-exact")
-    out["cli_launches"] = 2
     print(f"{tag} CLI -sharded 2 {SIZE}^2 wl={LEVELS}: file == the "
           "unsharded CLI file, round trip bit-exact, BPC launches 2 / 2, "
           f"X2 / X4 shard modes {x24[0]} / {x24[1]}")
-    single = TorchCodec(cfg, luts, params, dev)
-    samples = [torch.from_numpy(img).to(dev)]
-    coded1, n_pl = single.encode_planes(samples)
-    dcoded1 = [(s_, z_, n_pl) for s_, z_ in coded1]
-    t = {"unsharded": {
-        "device_encode": host_ms(lambda: single.encode_planes(samples)),
-        "device_decode": host_ms(lambda: single.decode_planes(dcoded1)),
-        "cli_round_trip": host_ms(lambda: cli_pair(1))}}
-    for n in (2, 4):
-        codec = ShardedCodec(cfg, luts, params, [dev] * n)
-        up = codec.upload(img)
-        coded, n_pl = codec.encode_planes(up)
-        dcoded = [(shards, n_pl) for shards in coded]
-        t[f"{n} shards"] = {
-            "device_encode": host_ms(lambda: codec.encode_planes(up)),
-            "device_decode": host_ms(lambda: codec.decode_planes(dcoded)),
-            "cli_round_trip": host_ms(lambda: cli_pair(n))}
-    mp = SIZE * SIZE / 1e3
-    for k, v in t.items():
-        out["times"][k] = {m: stat(x) for m, x in v.items()}
-        print(f"{tag} {SIZE}^2 wl={LEVELS} {k}: " + ", ".join(
-            f"{m} median {statistics.median(x):.4f} ms (min {min(x):.4f}, "
-            f"max {max(x):.4f}; {mp / statistics.median(x):.1f} MPix/s)"
-            for m, x in v.items()) + f" over {ITERS} ({card})")
     tmp.cleanup()
 
-    # 1080p video: devices=2 against devices=1, two turns
+    # 1080p video: devices=2 against devices=1
     w, h, n, batch = SHARDED_VIDEO
     tmp = tempfile.TemporaryDirectory()
     d = tmp.name
@@ -1249,37 +860,30 @@ def sharded_phase(dev, tag: str, err: dict, card: str) -> dict:
         for i in range(n):
             f.write(goldens.make_frame(h, w, i).tobytes())
     vcfg = CodecConfig(width=w, height=h, wavelet_levels=LEVELS, frames=n)
-    walls = {1: {"encode": [], "decode": []}, 2: {"encode": [], "decode": []}}
     n_batches = -(-n // batch)
-    for turn in range(2):
-        for devices in ((1, 2) if turn == 0 else (2, 1)):
-            enc = os.path.join(d, f"v{devices}.enc")
-            dec = os.path.join(d, f"v{devices}.raw")
-            bpc_cuda.reset_launches()
-            pack.reset_launches()
-            st = video.encode_video(raw, enc, vcfg, luts, params, n,
-                                    batch=batch, devices=[dev] * devices)
-            only_cp2(dict(bpc_cuda.ENCODE_LAUNCHES), n_batches * devices,
-                     f"video devices={devices} encode")
-            sd = video.decode_video(enc, dec, vcfg, luts, params,
-                                    batch=batch, devices=[dev] * devices)
-            only_cp2(dict(bpc_cuda.DECODE_LAUNCHES), n_batches * devices,
-                     f"video devices={devices} decode")
-            x3_as_bpc(f"video devices={devices}")
-            _require(read(dec) == read(raw),
-                     f"video devices={devices}: decode bit-exact")
-            walls[devices]["encode"].append(st.wall_s)
-            walls[devices]["decode"].append(sd.wall_s)
-            print(f"{tag} video {w}x{h} {n} frames batch {batch} devices="
-                  f"{devices} turn {turn + 1}: encode {st.wall_s:.4f} s = "
-                  f"{n / st.wall_s:.2f} frames/s (compute "
-                  f"{st.compute_s:.4f} s), decode {sd.wall_s:.4f} s = "
-                  f"{n / sd.wall_s:.2f} frames/s; launches "
-                  f"{n_batches * devices} a direction")
+    for devices in (1, 2):
+        enc = os.path.join(d, f"v{devices}.enc")
+        dec = os.path.join(d, f"v{devices}.raw")
+        bpc_cuda.reset_launches()
+        pack.reset_launches()
+        video.encode_video(raw, enc, vcfg, luts, params, n, batch=batch,
+                           devices=[dev] * devices)
+        only_cp2(dict(bpc_cuda.ENCODE_LAUNCHES), n_batches * devices,
+                 f"video devices={devices} encode")
+        video.decode_video(enc, dec, vcfg, luts, params, batch=batch,
+                           devices=[dev] * devices)
+        only_cp2(dict(bpc_cuda.DECODE_LAUNCHES), n_batches * devices,
+                 f"video devices={devices} decode")
+        x3_as_bpc(f"video devices={devices}")
+        _require(read(dec) == read(raw),
+                 f"video devices={devices}: decode bit-exact")
     v1, v2 = (os.path.join(d, f"v{k}.enc") for k in (1, 2))
     _require(read(v1) == read(v2) and read(v1 + "_SIZE")
              == read(v2 + "_SIZE"), "video devices=2 file == devices=1")
-    out["video"] = {str(k): v for k, v in walls.items()}
+    print(f"{tag} video {w}x{h} {n} frames batch {batch}: devices=2 file "
+          "== devices=1, decodes bit-exact, launches "
+          f"{n_batches} / {2 * n_batches} a direction")
+
     def frames(count):
         """The first `count` frames, padded, on the card."""
         return torch.from_numpy(np.stack([mirror_pad(
@@ -1289,13 +893,9 @@ def sharded_phase(dev, tag: str, err: dict, card: str) -> dict:
     share = batch // 2
     bc = BatchCodec(vcfg, luts, params, share, dev)
     (vblocks,), mx = bc.prep_batch(frames(share))
-    k = kernels_at("video share", vblocks, bc._bpc_args(0),
-                   dict(bc.codec._bpc_kw,
-                        n_planes=bpc.planes_for_magnitude(int(mx))))
-    out["workloads"].append({
-        "workload": f"video {w}x{h}, {n} frames, batch {batch}, 2 devices",
-        "shards": 2, "launches": {"encode": n_batches * 2,
-                                  "decode": n_batches * 2}, **k})
+    kernels_at("video share", vblocks, bc._bpc_args(0),
+               dict(bc.codec._bpc_kw,
+                    n_planes=bpc.planes_for_magnitude(int(mx))))
 
     # multi-host: HOSTS processes on the card
     port = _free_port()
@@ -1325,18 +925,6 @@ def sharded_phase(dev, tag: str, err: dict, card: str) -> dict:
     _require(read(mh_enc) == read(v1) and read(mh_enc + "_SIZE")
              == read(v1 + "_SIZE"), "multi-host merged file == single-host")
     _require(read(mh_dec) == read(raw), "multi-host merged decode == input")
-    rep = {}
-    for direction in ("encode", "decode"):
-        sr = ScalingReport(
-            frames=n, num_hosts=HOSTS,
-            host_wall_s=[r[f"{direction}_wall_s"] for r in reports],
-            single_host_wall_s=min(walls[1][direction]))
-        rep[direction] = sr.as_dict()
-        print(f"{tag} multi-host {HOSTS} processes on one card, {direction}:"
-              f" host walls {sr.host_wall_s} s, single host "
-              f"{sr.single_host_wall_s:.4f} s, aggregate "
-              f"{sr.aggregate_fps:.2f} frames/s, efficiency "
-              f"{sr.efficiency:.4f}")
     launches = {dr: sum(r["launches"][dr] for r in reports)
                 for dr in ("encode", "decode")}
     x3_mh = {dr: sum(r["x3_launches"][dr] for r in reports)
@@ -1350,24 +938,18 @@ def sharded_phase(dev, tag: str, err: dict, card: str) -> dict:
                    for a, b in shares(n, HOSTS) if b > a)
         _require(launches == {"encode": want, "decode": want},
                  f"multi-host launches {launches}, want {want} a direction")
-    rep["launches"] = launches
-    out["multihost"] = rep
     tmp.cleanup()
     # the workers' launches code a batch of `batch` frames
     bc = BatchCodec(vcfg, luts, params, batch, dev)
     (vblocks,), mx = bc.prep_batch(frames(batch))
-    k = kernels_at("multi-host batch", vblocks, bc._bpc_args(0),
-                   dict(bc.codec._bpc_kw,
-                        n_planes=bpc.planes_for_magnitude(int(mx))))
-    out["workloads"].append({
-        "workload": f"multi-host video {w}x{h}, {n} frames, {HOSTS} "
-                    "processes", "shards": HOSTS, "launches": launches, **k})
+    kernels_at("multi-host batch", vblocks, bc._bpc_args(0),
+               dict(bc.codec._bpc_kw,
+                    n_planes=bpc.planes_for_magnitude(int(mx))))
     print(f"{tag} multi-host: merged file == single-host, merged decode == "
           f"input; launches {launches} over {HOSTS} processes")
-    return out
 
 
-def quality_phase(dev, tag: str, err: dict) -> dict:
+def quality_phase(dev, tag: str) -> None:
     """The quality tools on the card: the held-out images' digests first
     (an image that differs prints "input differs: <image>"); then each
     row of `quality_report`'s report (QUALITY.md's tables: 512^2 natural,
@@ -1385,8 +967,7 @@ def quality_phase(dev, tag: str, err: dict) -> dict:
     luts/trained_lossless --size 512`, its bpp equal to those rows'. The
     kernels are held to their plain versions at the rows' shapes (512^2:
     every codeblock; 2048^2: BIG_PICKS of them), lossless trained and
-    lossy qs 1, and timed there.
-    Returns the kernels' quality entries."""
+    lossy qs 1."""
     import contextlib
     import io
 
@@ -1495,7 +1076,6 @@ def quality_phase(dev, tag: str, err: dict) -> dict:
     tmp.cleanup()
 
     # the kernels at the rows' shapes, against their plain versions
-    out = []
     for size, picks in ((512, None), (2048, BIG_PICKS)):
         img = torch.from_numpy(np.array(qr.image("natural", size))).to(dev)
         for qs in (None, 1.0):
@@ -1521,47 +1101,23 @@ def quality_phase(dev, tag: str, err: dict) -> dict:
             s_p, z_p = bpc.encode_blocks_plain(blocks[idx], *sub, **kw)
             e = max(int((s_p.long() - s_k[idx].long()).abs().max()),
                     int((z_p.long() - z_k[idx].long()).abs().max()))
-            err["cp2"]["encode"] = max(err["cp2"]["encode"], e)
             _require(e == 0, f"quality {spec}: encode kernel == plain on "
                      f"{idx.numel()} codeblocks, max err {e}")
             o_p = bpc.decode_blocks_plain(s_k[idx], z_k[idx], *sub, **kw)
             e = int((o_p.long() - blocks[idx].long()).abs().max())
-            err["cp2"]["decode"] = max(err["cp2"]["decode"], e)
             _require(e == 0, f"quality {spec}: plain decode of the kernel's "
                      f"streams == input on {idx.numel()} codeblocks")
-            if qs is not None:
-                continue
-            bound, by = bpc_cuda.bound_ms(blocks)
-            k = {"codeblocks": blocks.shape[0],
-                 "encode_ms": kernel_ms(
-                     lambda: bpc_cuda.encode_blocks(blocks, *a, **kw)),
-                 "decode_ms": kernel_ms(
-                     lambda: bpc_cuda.decode_blocks(s_k, z_k, *a, **kw)),
-                 "bound_ms": bound, "bound_by": by}
-            out.append({"workload": f"quality report {size}^2 rows",
-                        "launches": dict(zip(("encode", "decode"),
-                                             launches[size])), **k})
-            if size == 512:
-                out.append({"workload": "lut_eval 512^2", "launches": dict(
-                    zip(("encode", "decode"), ev)), **k})
-            print(f"{tag} quality {size}^2 natural: kernels == plain on "
-                  f"{idx.numel()} codeblocks (lossless trained and lossy qs "
-                  f"1); {k['codeblocks']} codeblocks a launch, K1 "
-                  f"{k['encode_ms']:.4f} ms, K2 {k['decode_ms']:.4f} ms, "
-                  f"bound {bound:.5f} ms ({by})")
-    return out
+        print(f"{tag} quality {size}^2 natural: kernels == plain on "
+              f"{idx.numel()} codeblocks of {blocks.shape[0]} (lossless "
+              "trained and lossy qs 1)")
 
 
-def busy_phase(dev, tag: str, codec, img, cli_round_trip,
-               cli_median_ms: float) -> None:
-    """The main path's device busy share: `device_trace` over one
-    TorchCodec encode + decode of `img` and over one CLI round trip
-    (`cli_round_trip()`), each after an untraced and a traced warm-up
-    (CUPTI's first use costs seconds). Prints the busy ms (the union of
-    the card's kernel and copy spans) and span count, the share of the
-    profiled wall and of the unprofiled median (the API round trip's
-    here, ITERS times; the CLI's from phase 6); a trace without device
-    spans, or without every span of the codec's layers, fails."""
+def busy_phase(dev, tag: str, codec, img, cli_round_trip) -> None:
+    """The main path's trace: `device_trace` over one TorchCodec encode +
+    decode of `img` and over one CLI round trip (`cli_round_trip()`), each
+    after an untraced and a traced warm-up (CUPTI's first use costs
+    seconds); a trace without device spans, or without every span of the
+    codec's layers, fails."""
     import torch
 
     from picsong_tpu_torch.obs.trace import busy_ms, device_trace
@@ -1576,33 +1132,26 @@ def busy_phase(dev, tag: str, codec, img, cli_round_trip,
             "picsong/decode.upload", "picsong/x3.unpack",
             "picsong/decode_planes", "picsong/k2", "picsong/x4",
             "picsong/decode.download"}
-    api_ms = statistics.median(host_ms(api_round_trip))
     tmp = tempfile.TemporaryDirectory()
-    for label, fn, unprofiled in (
-            ("TorchCodec encode + decode", api_round_trip, api_ms),
-            ("CLI round trip", cli_round_trip, cli_median_ms)):
+    for label, fn in (("TorchCodec encode + decode", api_round_trip),
+                      ("CLI round trip", cli_round_trip)):
         fn()
         with device_trace(os.path.join(tmp.name, "warm"), dev):
             fn()
         log_dir = os.path.join(tmp.name, label.split()[0])
         with device_trace(log_dir, dev) as prof:
-            torch.cuda.synchronize()
-            t = time.perf_counter()
             fn()
             torch.cuda.synchronize()
-            wall = (time.perf_counter() - t) * 1e3
-        busy, n_spans = busy_ms(prof)
+        n_spans = busy_ms(prof)[1]
         _require(n_spans > 0, f"{label}: the trace holds device spans")
         (trace,) = os.listdir(log_dir)
         with open(os.path.join(log_dir, trace)) as f:
             names = {e.get("name") for e in json.load(f)["traceEvents"]}
         _require(want <= names, f"{label}: the trace names the codec's "
                  "spans")
-        print(f"{tag} busy share, {label} {SIZE}^2 wl={LEVELS} lossless: "
-              f"device busy {busy:.4f} ms ({n_spans} kernel and copy spans) "
-              f"in a profiled wall of {wall:.4f} ms: {busy / wall:.4f} of "
-              f"it, {busy / unprofiled:.4f} of the unprofiled median "
-              f"{unprofiled:.4f} ms; the trace names the codec's spans")
+        print(f"{tag} trace of the {label} {SIZE}^2 wl={LEVELS} lossless: "
+              f"{n_spans} kernel and copy spans; the trace names the "
+              "codec's spans")
     tmp.cleanup()
 
 
@@ -1631,7 +1180,7 @@ def main() -> int:
     from picsong_tpu_torch.engine import cli
     from picsong_tpu_torch.engine.pipeline import TorchCodec
     from picsong_tpu_torch.entropy import bpc, bpc_cuda
-    from picsong_tpu_torch.tools import goldens, kernel_ab, probe, probe2
+    from picsong_tpu_torch.tools import goldens, probe, probe2
     from picsong_tpu_torch.transform import dwt_cuda
 
     make_image = goldens.make_image
@@ -1678,9 +1227,6 @@ def main() -> int:
     print(f"{tag} inputs: {len(goldens.IMAGES)} images equal to the golden "
           "digests' inputs")
 
-    # max abs error of each kernel variant against its plain version
-    err = {m: {"encode": 0, "decode": 0} for m in modes}
-
     def gpu(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
@@ -1697,7 +1243,6 @@ def main() -> int:
         torch.cuda.synchronize()
         e = max(int((s_k.long() - s_p.long()).abs().max()),
                 int((n_k.long() - n_p.long()).abs().max()))
-        err[mode]["encode"] = max(err[mode]["encode"], e)
         _require(e == 0, f"{mode} encode kernel == plain ({what}), max err {e}")
         return s_k, n_k
 
@@ -1709,7 +1254,6 @@ def main() -> int:
                                       n_planes=n_planes)
         torch.cuda.synchronize()
         e = int((o_k.long() - o_p.long()).abs().max())
-        err[mode]["decode"] = max(err[mode]["decode"], e)
         _require(e == 0, f"{mode} decode kernel == plain ({what}), max err {e}")
         _require(torch.equal(o_k, want), f"{mode} decode == input ({what})")
 
@@ -1745,8 +1289,7 @@ def main() -> int:
                      f"raw fallback and empty block exercised ({what})")
             compare_decode(s, z, args, kw, n_planes, b, what)
     print(f"{tag} random batches cp=2: 9 x {n} codeblocks, kernels "
-          f"byte-equal to plain (max abs err encode {err['cp2']['encode']}, "
-          f"decode {err['cp2']['decode']}), decode == input")
+          "byte-equal to plain, decode == input")
 
     # cp=3 and k > 0: a random LUT favouring zeros (every group table with
     # k), an empty block (3), a raw-fallback block (5), a block with MSB 0
@@ -1784,12 +1327,11 @@ def main() -> int:
                      f"MSB-15 block exercised, split plane {consec} ({what})")
         compare_decode(s, z, args_r, kw_r, n_planes, b, what)
     print(f"{tag} random batches cp=3, k=1, 5, 8: 4 x {n} codeblocks, random "
-          f"LUTs; kernels byte-equal to plain (max abs err cp3 "
-          f"{err['cp3']}, bulk {err['bulk']}), decode == input")
+          "LUTs; kernels byte-equal to plain, decode == input")
 
     # ---- 3b. X2/X4 vs plain: the DWT phase --------------------------------
     stamp("3b")
-    dwt = dwt_phase(dev, tag)
+    dwt_phase(dev, tag)
 
     # ---- 4. oracle check at BASELINE config 1 (512^2, wl=1) ---------------
     stamp("4")
@@ -1817,8 +1359,7 @@ def main() -> int:
     write_pgm(src, img)
 
     def cli_pair(job):
-        """One CLI encode and decode (the timed round trip: no read-back, no
-        check). Sets every BPC, DWT and X3 launch count to 0 first, reads
+        """One CLI encode and decode. Sets every BPC, DWT and X3 launch count to 0 first, reads
         them after, and returns the launches of the job's BPC mode, of X2
         ("forward"), X4 ("reverse") and X3 ("pack", "unpack"); no other
         BPC mode may have launched."""
@@ -1857,27 +1398,16 @@ def main() -> int:
                           f"{'lossy' if lossy else 'lossless'} {lut_folder} "
                           f"-cp {cp} -k {k:g}", bpc_cuda.mode_of(cp, k > 0))
 
-    def add(total, got):
-        return {d: total[d] + got[d] for d in total}
-
-    # launches of each kernel variant on the paths that carry it
-    launches = {m: {"encode": 0, "decode": 0} for m in modes}
-    dwt_launches = {"forward": 0, "reverse": 0}
-    pack_launches = {"pack": 0, "unpack": 0}
-    exact, enc_bytes = {}, {}
+    exact, enc_bytes, launched = {}, {}, {}
     for lut_folder in ("neutral", "trained"):
         enc, dec, job = gray_job(lut_folder)
-        got = cli_pair(job)
-        launches["cp2"] = add(launches["cp2"], got)
-        dwt_launches = add(dwt_launches, got)
-        pack_launches = add(pack_launches, got)
+        launched[lut_folder] = cli_pair(job)
         exact[lut_folder] = np.array_equal(read_pgm(dec), img)
         enc_bytes[lut_folder] = os.path.getsize(enc)
     _require(all(exact.values()), f"2048^2 CLI round trips bit-exact {exact}")
     print(f"{tag} {SIZE}^2 wl={LEVELS} CLI round trips bit-exact: neutral "
           f"{enc_bytes['neutral']} B, trained {enc_bytes['trained']} B; "
-          f"kernel launches on the main path: BPC {launches['cp2']}, X2/X4 "
-          f"{dwt_launches}, X3 {pack_launches}")
+          f"kernel launches on the main path: {launched}")
 
     def oracle_picks(label, c, blocks, streams, sizes, key):
         """The first codeblock of every level and subband of the 2048^2
@@ -1920,66 +1450,15 @@ def main() -> int:
 
     # ---- 5b. X3, the pack and unpack kernels, vs plain --------------------
     stamp("5b")
-    x3 = pack_results()
-    pack_phase(dev, tag, x3)
-    pack_check(tag, f"{SIZE}^2 wl={LEVELS} main path", streams, sizes,
-               pack_header(cfg), x3, timed=True)
+    pack_phase(dev, tag)
+    pack_check(f"{SIZE}^2 wl={LEVELS} main path", streams, sizes,
+               pack_header(cfg))
 
-    # ---- 6. times ----------------------------------------------------------
+    # ---- 6. the main path's codestream and trace ------------------------
+    # the codestream is packed and unpacked on the card, so only its
+    # packed bytes cross PCIe
     stamp("6")
-    mpix = SIZE * SIZE / 1e6
-
-    def report(name, samples, rate=True, mp=mpix):
-        ms = statistics.median(samples)
-        per = f" ({mp / (ms / 1e3):.1f} MPix/s)" if rate else ""
-        print(f"{tag} {name}: median {ms:.4f} ms, min {min(samples):.4f}, "
-              f"max {max(samples):.4f} over {len(samples)}{per}")
-        return ms
-
-    # each variant's kernel and plain times at 2048^2 wl=5 (1024 codeblocks)
-    kt = {}
-
-    def kernel_times(mode, c, blocks, streams, sizes, n_pl):
-        """CUDA-event times of the mode's two kernels (KERNEL_BATCH
-        launches back to back) and of their plain versions on one plane;
-        returns the kernels' samples."""
-        a, kw = c._bpc_args(), c._bpc_kw
-        enc = device_ms(lambda: bpc_cuda.encode_blocks(blocks, *a, **kw,
-                                                       n_planes=n_pl),
-                        per=KERNEL_BATCH)
-        dec = device_ms(lambda: bpc_cuda.decode_blocks(streams, sizes, *a,
-                                                       **kw, n_planes=n_pl),
-                        per=KERNEL_BATCH)
-        kt[mode] = {
-            "encode": report(f"BPC encode kernel {mode}", enc),
-            "decode": report(f"BPC decode kernel {mode}", dec),
-            "encode plain": report(
-                f"BPC encode plain PyTorch on the card {mode}", device_ms(
-                    lambda: bpc.encode_blocks_plain(blocks, *a, **kw,
-                                                    n_planes=n_pl),
-                    iters=PLAIN_ITERS, warm=1)),
-            "decode plain": report(
-                f"BPC decode plain PyTorch on the card {mode}", device_ms(
-                    lambda: bpc.decode_blocks_plain(streams, sizes, *a, **kw,
-                                                    n_planes=n_pl),
-                    iters=PLAIN_ITERS, warm=1)),
-        }
-        return enc, dec
-
-    report(f"device encode {SIZE}^2 wl={LEVELS} (samples -> streams)",
-           host_ms(lambda: codec.encode_planes([samples])))
-    report(f"device decode {SIZE}^2 wl={LEVELS} (streams -> samples)",
-           host_ms(lambda: codec.decode_planes([(streams, sizes, n_planes)])))
-    cli_ms = report(f"CLI round trip {SIZE}^2 wl={LEVELS} neutral LUT "
-                    "(file -> file -> file)",
-                    host_ms(lambda: cli_pair(gray_job("neutral")[2])))
-    enc_kernel, dec_kernel = kernel_times("cp2", codec, blocks, streams,
-                                          sizes, n_planes)
-
-    # per-layer breakdown of the host API round trip; the codestream is
-    # packed and unpacked on the card, so only its packed bytes cross PCIe
-    header = pack_header(cfg)
-    packed = pack.pack_streams(streams, sizes, header)
+    packed = pack.pack_streams(streams, sizes, pack_header(cfg))
     shorts = packed.cpu().numpy().view(np.uint16)
     _require(np.array_equal(shorts, codec.encode(img)[0])
              and shorts.size == pack.stream_length(
@@ -1989,36 +1468,13 @@ def main() -> int:
     s_back, z_back = pack.unpack_streams(packed, codec.ncb, payload)
     _require(torch.equal(s_back, streams) and torch.equal(z_back, sizes),
              "device unpack == the kernel's streams and sizes")
-    layers = {
-        "prep+DWT+tile (X2)": device_ms(
-            lambda: dwt_cuda.forward([samples], cfg)),
-        "BPC encode kernel": enc_kernel,
-        "device pack (X3 kernels, one scalar read)": host_ms(
-            lambda: pack.pack_streams(streams, sizes, header)),
-        "device pack plain (torch ops, one scalar read)": host_ms(
-            lambda: pack.pack_streams_plain(streams, sizes, header)),
-        "D2H packed codestream": host_ms(lambda: packed.cpu()),
-        "H2D packed codestream": host_ms(
-            lambda: torch.from_numpy(shorts.view(np.int16)).to(dev)),
-        "device unpack (X3 kernels)": device_ms(
-            lambda: pack.unpack_streams(packed, codec.ncb, payload)),
-        "device unpack plain (torch ops)": device_ms(
-            lambda: pack.unpack_streams_plain(packed, codec.ncb, payload)),
-        "BPC decode kernel": dec_kernel,
-        "untile+IDWT+clamp (X4)": device_ms(
-            lambda: dwt_cuda.reverse([blocks], cfg)),
-    }
-    for name, times in layers.items():
-        report(f"layer {name}", times, rate=False)
     print(f"{tag} packed codestream {shorts.nbytes} B crosses PCIe each "
           f"way (the raw stream buffers: {streams.nbytes + sizes.nbytes} B)")
     busy_phase(dev, tag, codec, img,
-               lambda: cli_pair(gray_job("neutral")[2]), cli_ms)
+               lambda: cli_pair(gray_job("neutral")[2]))
 
     # ---- 7. probes K3/K4: kernel vs plain, then their entry points -------
     stamp("7")
-    perr = {"probe": 0, "probe2": 0}
-    pt = {}
     for name, module in (("probe", probe), ("probe2", probe2)):
         for what, args, skip in (
                 ("probe inputs", module.inputs(0), 0),
@@ -2030,43 +1486,12 @@ def main() -> int:
             got_p = module.plain(*dargs)
             torch.cuda.synchronize()
             e = int((got_k.long() - got_p.long()).abs().max())
-            perr[name] = max(perr[name], e)
             _require(e == 0, f"{name} kernel == plain ({what}), max err {e}")
             _require(torch.equal(got_p.cpu(), module.plain(
                 *(torch.from_numpy(a) for a in args))),
                 f"{name} plain on the card == plain on the host ({what})")
-        dargs = [gpu(a) for a in module.inputs(0)]
-        pt[name] = report(f"{name} kernel, {PROBE_CALLS} back-to-back "
-                          "launches (total)", device_ms(
-                              lambda: [module.launch(*dargs)
-                                       for _ in range(PROBE_CALLS)]),
-                          rate=False) / PROBE_CALLS
-        pt[name + " plain"] = report(
-            f"{name} plain PyTorch on the card, {PROBE_CALLS} calls "
-            "(total)", device_ms(lambda: [module.plain(*dargs)
-                                       for _ in range(PROBE_CALLS)]),
-            rate=False) / PROBE_CALLS
-        # the kernel's device time without the wrapper's host time
-        pt[name + " device"] = kernel_ab.graph_ms(
-            lambda: module.launch(*dargs))
-        pt[name + " bound"] = module.bound_ms(*dargs)
-        print(f"{tag} {name}: kernel {pt[name]:.6f} ms/call, device "
-              f"{pt[name + ' device']:.6f} ms/call (CUDA graph), plain "
-              f"{pt[name + ' plain']:.6f} ms/call (max abs err "
-              f"{perr[name]})")
-    # the floors, timed as the probes are: a one-element torch op, back to
-    # back and in a CUDA graph
-    one = torch.zeros(1, dtype=torch.int32, device=dev)
-    floor = report(f"launch floor: a one-element torch op (add_), "
-                   f"{PROBE_CALLS} back-to-back calls (total)", device_ms(
-                       lambda: [one.add_(1) for _ in range(PROBE_CALLS)]),
-                   rate=False) / PROBE_CALLS
-    graph_floor = kernel_ab.graph_ms(lambda: one.add_(1))
-    print(f"{tag} launch floor {floor:.6f} ms a call, beside the probes' "
-          f"{pt['probe']:.6f} / {pt['probe2']:.6f} ms; graph floor "
-          f"{graph_floor:.6f} ms a call, beside the probes' device "
-          f"{pt['probe device']:.6f} / {pt['probe2 device']:.6f} ms; bounds "
-          f"{pt['probe bound'][0]:.8f} / {pt['probe2 bound'][0]:.8f} ms")
+        print(f"{tag} {name}: kernel == plain on its inputs, seed 1, edge "
+              "inputs and views one word off 16-byte alignment")
     probe_launches = {}
     for name, module in (("probe", probe), ("probe2", probe2)):
         print(f"{tag} python -m picsong_tpu_torch.tools.{name}:")
@@ -2087,8 +1512,7 @@ def main() -> int:
         samples (X4) against the plain version's on the host; with `picks`,
         one codeblock of every band against the oracle's digests of the
         `picks` key = (coding passes, k, LUT folder). Returns the decoded
-        planes, the codec, its codeblocks and streams per component, and
-        n_planes."""
+        planes."""
         c = TorchCodec(cfg, luts, lut_params, dev)
         tiled, top = dwt_cuda.forward([gpu(p) for p in planes], cfg)
         n_pl = bpc.planes_for_magnitude(int(top))
@@ -2121,7 +1545,7 @@ def main() -> int:
                                    "host port's" if host else "")
               + (f"; {n_picks} codeblocks (LL and every level/subband) "
                  "byte-equal to the oracle" if picks else ""))
-        return [o.numpy() for o in out], c, tiled, coded, n_pl
+        return [o.numpy() for o in out]
 
     def same_planes(back, out):
         return all(np.array_equal(b, o[:b.shape[0], :b.shape[1]])
@@ -2146,7 +1570,7 @@ def main() -> int:
                         wavelet_levels=LOSSY_LEVELS, is_lossy=True, qs=1.0)
     luts_l = [neutral_lut(params, LOSSY_LEVELS, 2)]
     out_l = check_planes(f"{SIZE}^2 lossy plane", cfg_l, luts_l, params,
-                         [img], host=True)[0]
+                         [img], host=True)
     for lut_folder in ("neutral", "trained"):
         lossy_cli(lut_folder, out_l)
 
@@ -2202,7 +1626,7 @@ def main() -> int:
     print(f"{tag} RGB {RGB_W}x{RGB_H} wl={LEVELS} lossless CLI round trip "
           f"bit-exact, {nbytes} B; kernel launches {got}")
     out = check_planes(f"RGB {RGB_W}x{RGB_H} lossless", cfg_rgb, luts_rgb,
-                       params_rgb, rgb, host=False)[0]
+                       params_rgb, rgb, host=False)
     _require(same_planes(back, out), "RGB lossless: CLI == card decode")
     got, back, nbytes = rgb_cli(True)
     dbs = [psnr(b, p) for b, p in zip(back, rgb)]
@@ -2211,7 +1635,7 @@ def main() -> int:
           f"PSNR R {dbs[0]:.4f}, G {dbs[1]:.4f}, B {dbs[2]:.4f} dB, "
           f"{nbytes} B; kernel launches {got}")
     out = check_planes(f"RGB {RGB_W}x{RGB_H} lossy", cfg_rgb_l, luts_rgb_l,
-                       params_rgb_l, rgb, host=True)[0]
+                       params_rgb_l, rgb, host=True)
     _require(same_planes(back, out),
              "RGB lossy: CLI decode == the host-checked card decode")
 
@@ -2238,7 +1662,7 @@ def main() -> int:
     cfg16 = CodecConfig(width=SIZE, height=SIZE, wavelet_levels=LEVELS,
                         bit_depth=16, bps=16)
     out = check_planes(f"{SIZE}^2 16-bit plane", cfg16, luts, params,
-                       [img16], host=False)[0]
+                       [img16], host=False)
     _require(same_planes([back16], out), "16-bit: CLI == card decode")
 
     # ---- 11. three coding passes (-cp 3) and -k 5, 2048^2 ----------------
@@ -2246,12 +1670,10 @@ def main() -> int:
     # counted around its own CLI round trip; then lossy wl=3 -k 5 with the
     # trained lossy LUT, held to a CPU TorchCodec as the other lossy paths
     stamp("11")
-    new_paths = {}
-    for mode, cp, k in (("cp3", 3, 0.0), ("bulk", 2, K)):
+    for cp, k in ((3, 0.0), (2, K)):
         for lut_folder in ("neutral", "trained"):
             enc, dec, job = gray_job(lut_folder, cp=cp, k=k)
             got = cli_pair(job)
-            launches[mode] = add(launches[mode], got)
             _require(np.array_equal(read_pgm(dec), img),
                      f"2048^2 -cp {cp} -k {k:g} {lut_folder} CLI round trip "
                      "bit-exact")
@@ -2265,81 +1687,21 @@ def main() -> int:
             label = f"{SIZE}^2 -cp {cp} -k {k:g} {lut_folder} plane"
             checked = check_planes(label, cfg_m, luts_m, params_m, [img],
                                    host=False, picks=(cp, k, lut_folder))
-            _require(same_planes([img], checked[0]),
+            _require(same_planes([img], checked),
                      f"{label}: card decode == input")
-            if lut_folder == "neutral":
-                new_paths[mode] = (cfg_m, luts_m, params_m, job, checked)
     cfg_lk = CodecConfig(width=SIZE, height=SIZE,
                          wavelet_levels=LOSSY_LEVELS, is_lossy=True, qs=1.0,
                          k_factor=K)
     luts_lk, params_lk = cli._load_luts("trained", LOSSY_LEVELS, 2, K,
                                         lossy=True)
     out_lk = check_planes(f"{SIZE}^2 lossy -k {K:g} trained plane", cfg_lk,
-                          luts_lk, params_lk, [img], host=True)[0]
-    launches["bulk"] = add(launches["bulk"], lossy_cli("trained", out_lk, K))
-    print(f"{tag} kernel launches on the -cp 3 paths {launches['cp3']}, on "
-          f"the -k {K:g} paths {launches['bulk']}")
-
-    # ---- 12. times of the paths after the main one -----------------------
-    stamp("12")
-    def path_times(label, cfg, luts, lut_params, planes, job):
-        """Layer, device and CLI times of a path; the CLI round trip is the
-        two cli.main calls alone (no read-back, no check)."""
-        c = TorchCodec(cfg, luts, lut_params, dev)
-        smp = [gpu(p) for p in planes]
-        mp = cfg.width * cfg.height / 1e6
-        blocks, _ = dwt_cuda.forward(smp, cfg)
-        coded, n_pl = c.encode_planes(smp)
-        dcoded = [(s_, z_, n_pl) for s_, z_ in coded]
-        torch.cuda.synchronize()
-        layer = {
-            "prep+DWT+tile (X2)": device_ms(
-                lambda: dwt_cuda.forward(smp, cfg)),
-            "BPC encode kernel": device_ms(
-                lambda: [bpc_cuda.encode_blocks(b, *c._bpc_args(i),
-                                                **c._bpc_kw, n_planes=n_pl)
-                         for i, b in enumerate(blocks)]),
-            "device pack + D2H packed": host_ms(
-                lambda: [pack.pack_streams(s_, z_, None).cpu()
-                         for s_, z_ in coded]),
-            "BPC decode kernel": device_ms(
-                lambda: [bpc_cuda.decode_blocks(s_, z_, *c._bpc_args(i),
-                                                **c._bpc_kw, n_planes=n_pl)
-                         for i, (s_, z_) in enumerate(coded)]),
-            "untile+IDWT+finish (X4)": device_ms(
-                lambda: dwt_cuda.reverse(blocks, cfg)),
-        }
-        for name, v in layer.items():
-            report(f"{label} layer {name}", v, rate=False)
-        report(f"{label} device encode", host_ms(
-            lambda: c.encode_planes(smp)), mp=mp)
-        report(f"{label} device decode", host_ms(
-            lambda: c.decode_planes(dcoded)), mp=mp)
-        report(f"{label} CLI round trip (file -> file -> file)",
-               host_ms(lambda: cli_pair(job)), mp=mp)
-
-    path_times(f"lossy {SIZE}^2 wl={LOSSY_LEVELS}", cfg_l, luts_l, params,
-               [img], gray_job("neutral", lossy=True)[2])
-    path_times(f"RGB {RGB_W}x{RGB_H} lossless", cfg_rgb, luts_rgb,
-               params_rgb, rgb, rgb_job(False)[2])
-    path_times(f"RGB {RGB_W}x{RGB_H} lossy", cfg_rgb_l, luts_rgb_l,
-               params_rgb_l, rgb, rgb_job(True)[2])
-    path_times(f"16-bit {SIZE}^2", cfg16, luts, params, [img16], job16)
-    for mode, (cfg_m, luts_m, params_m, job, checked) in new_paths.items():
-        cp, k = cfg_m.coding_passes, cfg_m.k_factor
-        path_times(f"{SIZE}^2 wl={LEVELS} -cp {cp} -k {k:g} neutral", cfg_m,
-                   luts_m, params_m, [img], job)
-        _, c, blocks_m, coded_m, n_pl = checked
-        kernel_times(mode, c, blocks_m[0], *coded_m[0], n_pl)
-    path_times(f"lossy {SIZE}^2 wl={LOSSY_LEVELS} -k {K:g} trained", cfg_lk,
-               luts_lk, params_lk, [img],
-               gray_job("trained", lossy=True, k=K)[2])
+                          luts_lk, params_lk, [img], host=True)
+    lossy_cli("trained", out_lk, K)
     tmp.cleanup()
 
     # ---- 13. 8192^2 wl=5: 16384 codeblocks, a size that fills the card ---
     stamp("13")
     big = gpu(make_image(BIG))
-    big_ms = {}
     for mode, cp, k in (("cp2", 2, 0.0), ("cp3", 3, 0.0), ("bulk", 2, K)):
         cfg_b = CodecConfig(width=BIG, height=BIG, wavelet_levels=LEVELS,
                             coding_passes=cp, k_factor=k)
@@ -2358,170 +1720,35 @@ def main() -> int:
         s_p, z_p = bpc.encode_blocks_plain(blocks_b[idx], *sub, **kw)
         e = max(int((s_p.long() - s_b[idx].long()).abs().max()),
                 int((z_p.long() - z_b[idx].long()).abs().max()))
-        err[mode]["encode"] = max(err[mode]["encode"], e)
         _require(e == 0, f"{BIG}^2 {mode}: {BIG_PICKS} picked blocks, "
                  f"encode kernel == plain, max err {e}")
         o_p = bpc.decode_blocks_plain(s_b[idx], z_b[idx], *sub, **kw)
         e = int((o_p.long() - blocks_b[idx].long()).abs().max())
-        err[mode]["decode"] = max(err[mode]["decode"], e)
         _require(e == 0, f"{BIG}^2 {mode}: {BIG_PICKS} picked blocks, "
                  f"plain decode of the kernel's streams == input")
         if mode == "cp2":
-            pack_check(tag, f"{BIG}^2 wl={LEVELS}", s_b, z_b,
-                       pack_header(cfg_b), x3, timed=True)
-        bound, by = bpc_cuda.bound_ms(blocks_b)
-        big_ms[mode] = {
-            "encode": report(f"{BIG}^2 BPC encode kernel {mode}", device_ms(
-                lambda: bpc_cuda.encode_blocks(blocks_b, *a, **kw),
-                iters=5, per=KERNEL_BATCH), rate=False),
-            "decode": report(f"{BIG}^2 BPC decode kernel {mode}", device_ms(
-                lambda: bpc_cuda.decode_blocks(s_b, z_b, *a, **kw),
-                iters=5, per=KERNEL_BATCH), rate=False)}
+            pack_check(f"{BIG}^2 wl={LEVELS}", s_b, z_b, pack_header(cfg_b))
         print(f"{tag} {BIG}^2 wl={LEVELS} {mode}: {blocks_b.shape[0]} "
               f"codeblocks, n_planes {n_pl}; kernels' round trip == input, "
-              f"{BIG_PICKS} picked blocks byte-equal to plain; bound "
-              f"{bound:.4f} ms ({by}), share encode "
-              f"{bound / big_ms[mode]['encode']:.4f}, decode "
-              f"{bound / big_ms[mode]['decode']:.4f}")
+              f"{BIG_PICKS} picked blocks byte-equal to plain")
     del big
 
     # ---- 14. video through the CLI (-video 1), one launch per component
     # and frame batch ------------------------------------------------------
     stamp("14")
-    vid = video_phase(dev, tag, err, x3)
+    video_phase(dev, tag)
 
     # ---- 15. the distribution layer: sharded images, frame-parallel and
     # multi-host video, every shard on the card ----------------------------
     stamp("15")
-    shd = sharded_phase(dev, tag, err, card)
+    sharded_phase(dev, tag)
 
     # ---- 16. the quality tools: QUALITY.md's rows and lut_eval on the
     # card -----------------------------------------------------------------
     stamp("16")
-    qual = quality_phase(dev, tag, err)
+    quality_phase(dev, tag)
     print(f"{tag} every phase done {time.perf_counter() - started:.1f} s "
           "after the start")
-
-    # each BPC kernel's bound at the main path's shapes: the same symbols
-    # in every mode and direction
-    bpc_bound, bpc_by = bpc_cuda.bound_ms(blocks)
-    src_dir = "picsong_tpu_torch/csrc"
-    jax_src = "picsong_tpu/entropy/bpc_jax.py"
-    replaces = {
-        ("cp2", "encode"): "picsong_tpu/entropy/bpc_pallas.py:394",
-        ("cp2", "decode"): "picsong_tpu/entropy/bpc_pallas.py:707",
-        # the cleanup pass's row body (with _spp_row_body's three_cp, :307)
-        ("cp3", "encode"): f"{jax_src}:450", ("cp3", "decode"): f"{jax_src}:450",
-        # the fused multi-bitplane pass
-        ("bulk", "encode"): f"{jax_src}:537", ("bulk", "decode"): f"{jax_src}:537",
-    }
-    entries = []
-    for mode in modes:
-        for d in ("encode", "decode"):
-            entries.append({
-                "name": f"bpc_{d}" + ("" if mode == "cp2" else f"_{mode}"),
-                "route": "cuda", "source": f"{src_dir}/bpc_{d}.cu",
-                "replaces": replaces[(mode, d)],
-                "launches": launches[mode][d], "max_abs_err": err[mode][d],
-                "ms": kt[mode][d], "plain_ms": kt[mode][f"{d} plain"],
-                "bound_ms": bpc_bound, "bound_by": bpc_by,
-                # no single PyTorch call computes BPC-PaCo
-                "library_ms": None})
-            if mode == "cp2":
-                # the video paths' own launches, at their batch's shape
-                entries[-1]["video"] = [{
-                    "workload": name, "codeblocks": r["kernel"]["codeblocks"],
-                    "launches": r["launches"][d],
-                    "ms": r["kernel"][f"{d}_ms"],
-                    "bound_ms": r["kernel"]["bound_ms"],
-                    "bound_by": r["kernel"]["bound_by"]}
-                    for name, r in vid.items()]
-                # the sharded workloads' own launches, at the shape of a
-                # launch of their first shard
-                entries[-1]["sharded"] = [{
-                    "workload": r["workload"], "shards": r["shards"],
-                    "codeblocks": r["codeblocks"],
-                    "launches": r["launches"][d], "ms": r[f"{d}_ms"],
-                    "bound_ms": r["bound_ms"], "bound_by": r["bound_by"]}
-                    for r in shd["workloads"]]
-                # the quality tools' own launches, at the shape of their
-                # natural image's lossless launch
-                entries[-1]["quality"] = [{
-                    "workload": r["workload"],
-                    "codeblocks": r["codeblocks"],
-                    "launches": r["launches"][d], "ms": r[f"{d}_ms"],
-                    "bound_ms": r["bound_ms"], "bound_by": r["bound_by"]}
-                    for r in qual]
-    # X2/X4 at the main path's shape; launches on its two CLI round trips
-    main_dwt = dwt["times"][DWT_TIMED[0]]
-    designs = {
-        "forward": "16-row and 16-column strips lifted in registers (one "
-                   "barrier between the passes), 16-byte sample loads, "
-                   "staged 16-byte codeblock stores",
-        "reverse": "16-column and 16-row strips lifted in registers (a "
-                   "barrier after the load and after each pass), 16-byte "
-                   "codeblock loads, staged 16-byte sample stores"}
-    for d, line in (("forward", 157), ("reverse", 187)):
-        entries.append({
-            "name": f"dwt_{d}", "route": "cuda", "design": designs[d],
-            "source": f"{src_dir}/dwt_{d}.cu",
-            "replaces": f"picsong_tpu/transform/dwt.py:{line}",
-            "launches": dwt_launches[d],
-            "max_abs_err": max(dwt["err"][d], shd["dwt_err"][d]),
-            "ms": main_dwt[f"{d}_ms"], "plain_ms": main_dwt[f"{d}_plain_ms"],
-            "device_ms": main_dwt[f"{d}_device_ms"],
-            "bound_ms": main_dwt["bound_ms"],
-            "bound_by": main_dwt["bound_by"],
-            # no single PyTorch call computes a lifting DWT
-            "library_ms": None,
-            "shapes": [{"workload": label, "ms": t[f"{d}_ms"],
-                        "device_ms": t[f"{d}_device_ms"],
-                        "plain_ms": t[f"{d}_plain_ms"],
-                        "bound_ms": t["bound_ms"],
-                        "bound_by": t["bound_by"]}
-                       for label, t in dwt["times"].items()]})
-        entries[-1]["levels_ms"] = [
-            {"workload": label, "wavelet": wavelet, "ms": levels}
-            for (label, wavelet), levels in dwt["split"][d].items()]
-        # the shard mode on ShardedCodec's path: one image's launches (a
-        # shard and level) and their times, against X2's bound on the image
-        entries[-1]["sharded"] = [{
-            "workload": r["workload"], "shards": r["shards"],
-            "launches": r["launches"], "ms": r[f"{d}_ms"],
-            "device_ms": r[f"{d}_device_ms"], "plain_ms": r[f"{d}_plain_ms"],
-            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"]}
-            for r in shd["dwt"]]
-    # X3 at the main path's streams; launches on its two CLI round trips
-    main_x3 = x3["times"][f"{SIZE}^2 wl={LEVELS} main path"]
-    for d, line in (("pack", 1818), ("unpack", 1832)):
-        t = main_x3[d]
-        entries.append({
-            "name": d, "route": "cuda", "source": f"{src_dir}/pack.cu",
-            "replaces": f"{jax_src}:{line}",
-            "launches": pack_launches[d], "max_abs_err": x3["err"][d],
-            "ms": t["ms"], "plain_ms": t["plain_ms"],
-            "device_ms": t["device_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"],
-            # no single PyTorch call computes the relocation
-            "library_ms": None,
-            "shapes": [{"workload": label, "codeblocks": v["codeblocks"],
-                        "payload": v["payload"], "ms": v[d]["ms"],
-                        "device_ms": v[d]["device_ms"],
-                        "plain_ms": v[d]["plain_ms"],
-                        "bound_ms": v[d]["bound_ms"],
-                        "bound_by": v[d]["bound_by"]}
-                       for label, v in x3["times"].items()]})
-    for name, line in (("probe", 58), ("probe2", 54)):
-        bound, by = pt[name + " bound"]
-        entries.append({
-            "name": name, "route": "cuda", "source": f"{src_dir}/{name}.cu",
-            "replaces": f"tools/pallas_{name}.py:{line}",
-            "launches": probe_launches[name], "max_abs_err": perr[name],
-            "ms": pt[name], "plain_ms": pt[name + " plain"],
-            "device_ms": pt[name + " device"], "launch_floor_ms": floor,
-            "graph_floor_ms": graph_floor,
-            "bound_ms": bound, "bound_by": by, "library_ms": None})
-    print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

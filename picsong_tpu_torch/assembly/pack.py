@@ -13,9 +13,9 @@ per-call status words, then one warp per codeblock moves its words in
 16-byte stores or loads staged through shared memory; the reference's
 InclusiveSum + buildBitStreamLUTBS in BitStreamBuilder.cu); anything else
 raises. There is no path from a CUDA tensor to the plain version. The
-kernels launch on the current stream of the tensors' device, under that
-device, and synchronise only to read the payload total when the caller
-does not give it. `PACK_LAUNCHES` / `UNPACK_LAUNCHES` count the calls
+kernels launch through `kernels.launch`, on the current stream of the
+tensors' device, and synchronise only to read the payload total when the
+caller does not give it. `PACK_LAUNCHES` / `UNPACK_LAUNCHES` count the calls
 that launched them. Only the packed bytes cross to or from the host.
 
 Wire layout (the reference's):
@@ -50,9 +50,7 @@ import torch
 
 from .. import kernels
 from ..core import spec
-from ..entropy.bpc_cuda import BYTES_PER_S, _check, _check_aligned
 from ..obs.trace import readback, spanned
-from ..transform.dwt_cuda import _device_type, _on
 
 HEADER_SHORTS = 9
 # codeblocks a CTA of csrc/pack.cu takes, a tile of its scan (kTileBlocks),
@@ -179,22 +177,21 @@ def _check_payload(payload: int | None) -> None:
 
 @spanned("picsong/x3.pack")
 def pack_streams(streams: torch.Tensor, sizes: torch.Tensor,
-                 header: np.ndarray | None, payload: int | None = None,
-                 lib=None) -> torch.Tensor:
+                 header: np.ndarray | None,
+                 payload: int | None = None) -> torch.Tensor:
     """(N, 4096) int32 streams + (N,) int32 sizes (1..4096) -> the packed
     codestream of `stream_length(N, payload)` shorts, an int16 tensor on
     the streams' device, with `header` (9 shorts) or the filler. Reads one
     scalar from the device, the payload length, unless the caller gives
-    it (`sizes.sum() - N`). `lib` is the kernel library to launch
-    (default: the package's own)."""
+    it (`sizes.sum() - N`)."""
     global PACK_LAUNCHES
     n = streams.shape[0] if streams.dim() else 0
-    _check(streams, "streams", (n, spec.CBLOCK_SIZE))
-    _check(sizes, "sizes", (n,))
+    kernels.check_tensor(streams, "streams", (n, spec.CBLOCK_SIZE))
+    kernels.check_tensor(sizes, "sizes", (n,))
     _check_payload(payload)
-    if _device_type([streams, sizes], "X3") == "cpu":
+    if kernels.device_type([streams, sizes], "X3") == "cpu":
         return pack_streams_plain(streams, sizes, header, payload)
-    _check_aligned(streams, "streams")
+    kernels.check_aligned(streams, "streams")
     hdr = None
     if header is not None:
         hdr = np.ascontiguousarray(header, dtype=np.uint16)
@@ -211,15 +208,11 @@ def pack_streams(streams: torch.Tensor, sizes: torch.Tensor,
     # per-call scratch, zeroed on the current stream: calls in flight on
     # other streams or devices never share it
     status = torch.zeros(status_words(n), dtype=torch.int64, device=dev)
-    lib = lib or kernels.library()
-    ctx, stream = _on(dev)
-    with ctx:
-        rc = lib.picsong_pack(
-            streams.data_ptr(), sizes.data_ptr(), n,
-            None if hdr is None else ctypes.addressof(hdr), capacity,
-            status.data_ptr(), out.data_ptr(), stream)
+    kernels.launch(
+        "picsong_pack", dev, streams.data_ptr(), sizes.data_ptr(), n,
+        None if hdr is None else ctypes.addressof(hdr), capacity,
+        status.data_ptr(), out.data_ptr(), what="pack launch")
     PACK_LAUNCHES += 1
-    kernels.check(lib, rc, "pack launch")
     if payload is None:
         with readback("picsong/x3.pack.read_total"):
             total = int(status[-1])
@@ -228,13 +221,12 @@ def pack_streams(streams: torch.Tensor, sizes: torch.Tensor,
 
 
 @spanned("picsong/x3.unpack")
-def unpack_streams(stream: torch.Tensor, n_blocks: int, payload: int,
-                   lib=None) -> tuple[torch.Tensor, torch.Tensor]:
+def unpack_streams(stream: torch.Tensor, n_blocks: int,
+                   payload: int) -> tuple[torch.Tensor, torch.Tensor]:
     """A packed codestream (int16 tensor) of `n_blocks` codeblocks with
     `payload` words after their MSB words (from `block_fields`) ->
     ((N, 4096) int32 streams with -1 fill, (N,) int32 sizes), on the
-    stream's device. Reads nothing back from the device. `lib` as in
-    `pack_streams`."""
+    stream's device. Reads nothing back from the device."""
     global UNPACK_LAUNCHES
     if n_blocks < 0:
         raise ValueError(f"n_blocks must be >= 0, got {n_blocks}")
@@ -247,7 +239,7 @@ def unpack_streams(stream: torch.Tensor, n_blocks: int, payload: int,
         raise ValueError(f"stream of {stream.numel()} shorts is shorter than "
                          f"{n_blocks} codeblocks with {payload} payload "
                          "words")
-    if _device_type([stream], "X3") == "cpu":
+    if kernels.device_type([stream], "X3") == "cpu":
         return unpack_streams_plain(stream, n_blocks, payload)
     dev = stream.device
     out = torch.empty((n_blocks, spec.CBLOCK_SIZE), dtype=torch.int32,
@@ -257,14 +249,11 @@ def unpack_streams(stream: torch.Tensor, n_blocks: int, payload: int,
         return out, sizes
     status = torch.zeros(status_words(n_blocks), dtype=torch.int64,
                          device=dev)
-    lib = lib or kernels.library()
-    ctx, raw = _on(dev)
-    with ctx:
-        rc = lib.picsong_unpack(
-            stream.data_ptr(), n_blocks, payload, status.data_ptr(),
-            out.data_ptr(), sizes.data_ptr(), raw)
+    kernels.launch(
+        "picsong_unpack", dev, stream.data_ptr(), n_blocks, payload,
+        status.data_ptr(), out.data_ptr(), sizes.data_ptr(),
+        what="unpack launch")
     UNPACK_LAUNCHES += 1
-    kernels.check(lib, rc, "unpack launch")
     return out, sizes
 
 
@@ -279,7 +268,8 @@ def bound_ms(n_blocks: int, payload: int) -> dict[str, tuple[float, str]]:
     code = 2 * stream_length(n_blocks, payload)
     moved = {"pack": 4 * (2 * n_blocks + payload) + code,
              "unpack": code + 4 * n_blocks * (spec.CBLOCK_SIZE + 1)}
-    return {d: (b / BYTES_PER_S * 1e3, "bytes") for d, b in moved.items()}
+    return {d: (b / kernels.BYTES_PER_S * 1e3, "bytes")
+            for d, b in moved.items()}
 
 
 def _counts(n_parts: int, n_blocks) -> np.ndarray:

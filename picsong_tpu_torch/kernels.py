@@ -8,12 +8,16 @@ at first use (or when a source is newer than the library), and loaded with
 `ctypes`. The sources include no PyTorch header, so a build takes seconds.
 
 There is no fallback: a missing compiler, a failed build or a failed load
-raises `KernelBuildError` with the compiler's output. Only the wrappers
+raises `KernelBuildError` with the compiler's output. No source needs
+`--fmad=false`: the 9/7 kernels round through explicit intrinsics.
+
+This module is also the one way a kernel reaches the card. The wrappers
 (`entropy/bpc_cuda.py`, `transform/dwt_cuda.py`, `assembly/pack.py`,
-`tools/probe.py`, `tools/probe2.py`) call into the library, and only for
-CUDA tensors. No
-source needs `--fmad=false`: the 9/7 kernels round through explicit
-intrinsics.
+`tools/probe.py`, `tools/probe2.py`) find their inputs' device with
+`device_type`, check a C entry point's preconditions with `check_tensor`
+and `check_aligned`, and call it through `launch`, only for CUDA tensors.
+The peak rates of the card the kernels are built for, which their
+`bound_ms` models read, live here beside `NVCC_FLAGS`.
 """
 
 from __future__ import annotations
@@ -24,6 +28,8 @@ import os
 import shutil
 import subprocess
 
+import torch
+
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build",
@@ -31,6 +37,11 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build",
 LIB_NAME = "libpicsong_kernels.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
+# the H100 SXM's memory rate, its int32 rate outside the tensor cores (132
+# SMs x 64 int32 lanes x 1.98 GHz) and its float32 rate outside them
+BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+FLOAT32_OPS_PER_S = 67e12
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # name -> argument types; every C entry point returns a cudaError_t as int
@@ -190,3 +201,54 @@ def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
     if rc != 0:
         msg = lib.picsong_cuda_error_string(rc).decode()
         raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
+
+
+def device_type(tensors, what: str) -> str:
+    """The one device type of `tensors`, "cpu" or "cuda"; raises ValueError
+    when they are on several devices or on a device no kernel or plain
+    version of `what` runs on."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"{what} inputs are on several devices: {devices}")
+    dev = devices.pop()
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"no {what} implementation for device {dev}")
+    return dev.type
+
+
+def check_tensor(t: torch.Tensor, name: str, shape: tuple,
+                 dtype: torch.dtype = torch.int32) -> None:
+    """A C entry point's precondition on an argument: its dtype and shape,
+    and contiguous."""
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{name} must have shape {shape}, got "
+                         f"{tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def check_aligned(t: torch.Tensor, name: str) -> None:
+    """The BPC and pack kernels move codeblock rows as 8- and 16-byte
+    vectors."""
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} must be 16-byte aligned")
+
+
+def launch(entry: str, device: torch.device, *args, what: str) -> None:
+    """Call the C entry point `entry` of `library()` with `args` and then
+    the raw handle of `device`'s current stream, under `device` only when
+    it is not the current device (entering `torch.cuda.device` and building
+    a Stream object cost 3.6 and 5.6 us of a 2048^2 pack's host time on an
+    H100; kernel_ab --pack). Does not synchronise; raises through `check`
+    on a CUDA error, naming `what`."""
+    lib = library()
+    fn = getattr(lib, entry)
+    stream = torch._C._cuda_getCurrentRawStream(device.index)
+    if device.index == torch.cuda.current_device():
+        rc = fn(*args, stream)
+    else:
+        with torch.cuda.device(device):
+            rc = fn(*args, stream)
+    check(lib, rc, what)

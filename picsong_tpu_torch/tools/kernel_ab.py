@@ -30,15 +30,12 @@ one wave of resident CTAs, the time is one block's dependency chain.
 `--layers` instead times the layers around the BPC kernels, each tree's
 own (the other tree's package imported under another name) on the same
 2048^2 plane, in the same turns: prep + DWT + tiling and untile + inverse
-DWT + clamp as the tree's codec runs them -- `transform/dwt_cuda.py`'s
-`forward` / `reverse` where the tree has them (the X2/X4 kernels), else
-`TorchCodec`'s torch-op methods -- (CUDA events around one call, as
-chip_smoke.py's layers; sixteen turns of ten), lossless 5/3 wl=5 and lossy
-9/7 wl=3 qs=1, and the same X2 layer's device time without the
-wrapper's host time (`graph_ms`, a CUDA graph of 20 calls); for the
-lossless one also the device encode and decode and the CLI round trip
-(host clock with a synchronize, as chip_smoke.py's). Outputs must be
-equal.
+DWT + clamp, `transform/dwt_cuda.py`'s `forward` / `reverse` (the X2/X4
+kernels; CUDA events around one call, sixteen turns of ten), lossless
+5/3 wl=5 and lossy 9/7 wl=3 qs=1, and the same X2 layer's device time
+without the wrapper's host time (`graph_ms`, a CUDA graph of 20 calls);
+for the lossless one also the device encode and decode and the CLI round
+trip (host clock with a synchronize). Outputs must be equal.
 
 `--split` instead times X2 and X4 (`transform/dwt_cuda.py` `forward` and
 `reverse`) level by level, for this tree and, with `--other`, the other
@@ -61,8 +58,10 @@ over 20 back-to-back calls (CUDA events, medians of 10) and the bound
 `payload=`) and unpacks must be byte-equal, and the unpack the streams
 and sizes. One JSON line per (shape, direction). Then the wrapper split:
 the host time of each part of one call of this tree's `pack_streams` and
-`unpack_streams` at 2048^2 (checks, allocations, the device context, the
-stream, the ctypes launch, the error check; each part run alone
+`unpack_streams` at 2048^2 (checks, allocations, `kernels.launch` and
+its parts: the current-device test, the raw stream handle, the ctypes
+launch, the error check; beside them the device context and the Stream
+object that `kernels.launch` does without; each part run alone
 `SPLIT_REPS` times back to back, median of 5), beside the whole call's
 and the other tree's whole call; one JSON line per part.
 
@@ -134,7 +133,7 @@ SPLIT_LEVELS = 5
 PACK_SHAPES = (("2048^2", 2048, 2048, 0), ("(8, 1088, 1920)", 1080, 1920, 8),
                ("8192^2", 8192, 8192, 0))
 SPLIT_REPS = 200
-# back-to-back launches of a probe's call time (as chip_smoke.py's)
+# back-to-back launches of a probe's call time
 PROBE_CALLS = 200
 # the row-sharded path's shard counts on one card (`--sharded`)
 SHARDED_COUNTS = (2, 4)
@@ -297,14 +296,8 @@ def _other_package(root: str):
 
 def _tree_layers(pkg: str, codec, samples):
     """(prep + DWT + tiling -> blocks, untile + IDWT + clamp of blocks ->
-    samples) of a gray plane, as the tree `pkg`'s codec runs them."""
-    try:
-        dwt_cuda = importlib.import_module(f"{pkg}.transform.dwt_cuda")
-    except ModuleNotFoundError:            # a tree from before X2/X4
-        return (lambda: codec._dwt_tile_impl(
-                    codec._prep_gray_impl(samples))[0],
-                lambda b: codec._finish_gray_impl(
-                    codec._untile_idwt_impl(b)))
+    samples) of a gray plane, the tree `pkg`'s X2 and X4."""
+    dwt_cuda = importlib.import_module(f"{pkg}.transform.dwt_cuda")
     return (lambda: dwt_cuda.forward([samples], codec.cfg)[0][0],
             lambda b: dwt_cuda.reverse([b], codec.cfg)[0])
 
@@ -492,27 +485,24 @@ def host_split(parts: dict, **fields) -> None:
                   flush=True)
 
 
-def _stream_parts(dev, on) -> dict:
-    """The parts of a launch that find its device and stream: the device
-    context and the Stream object's handle, and what the wrappers run in
-    their place, `on` (`transform/dwt_cuda.py` `_on`)."""
+def _stream_parts(dev) -> dict:
+    """The parts of a launch that find its device and stream: what
+    `kernels.launch` runs (the current-device test and the raw handle of
+    the device's current stream) and, marked "saved", what it does without
+    (entering `torch.cuda.device` and a Stream object's handle)."""
     import torch
 
     def context():
         with torch.cuda.device(dev):
             pass
 
-    def raw():
-        ctx, stream = on(dev)
-        with ctx:
-            return stream
-
     return {
-        "with torch.cuda.device(dev)": context,
-        "torch.cuda.current_device()": torch.cuda.current_device,
-        "torch.cuda.current_stream(dev).cuda_stream":
+        "with torch.cuda.device(dev) (saved)": context,
+        "torch.cuda.current_stream(dev).cuda_stream (saved)":
             lambda: torch.cuda.current_stream(dev).cuda_stream,
-        "_on(dev) (context when not current, raw stream)": raw,
+        "torch.cuda.current_device()": torch.cuda.current_device,
+        "torch._C._cuda_getCurrentRawStream(dev.index)":
+            lambda: torch._C._cuda_getCurrentRawStream(dev.index),
     }
 
 
@@ -554,16 +544,18 @@ def wrapper_split(pack, kernels, streams, sizes, header, card,
             pack.status_words(n), dtype=torch.int64, device=dev),
         "torch.empty (status, for the zeroing's share)": lambda: torch.empty(
             pack.status_words(n), dtype=torch.int64, device=dev),
-        **_stream_parts(dev, pack._on),
+        **_stream_parts(dev),
     }
     parts = {
         "pack": {
-            "_check x2 + payload": lambda: (
-                pack._check(streams, "streams", (n, 4096)),
-                pack._check(sizes, "sizes", (n,)),
+            "kernels.check_tensor x2 + payload": lambda: (
+                kernels.check_tensor(streams, "streams", (n, 4096)),
+                kernels.check_tensor(sizes, "sizes", (n,)),
                 pack._check_payload(payload)),
-            "_device_type": lambda: pack._device_type([streams, sizes], "X3"),
-            "_check_aligned": lambda: pack._check_aligned(streams, "streams"),
+            "kernels.device_type": lambda: kernels.device_type(
+                [streams, sizes], "X3"),
+            "kernels.check_aligned": lambda: kernels.check_aligned(
+                streams, "streams"),
             "header to a ctypes array": header_arg,
             "torch.empty (codestream)": lambda: torch.empty(
                 pack.stream_length(n, payload), dtype=torch.int16,
@@ -574,6 +566,11 @@ def wrapper_split(pack, kernels, streams, sizes, header, card,
                 ctypes.addressof(hdr), payload, status.data_ptr(),
                 out.data_ptr(), stream),
             "kernels.check": lambda: kernels.check(lib, 0, "pack launch"),
+            "kernels.launch (the library, the unsaved parts, the launch, "
+            "the check)": lambda: kernels.launch(
+                "picsong_pack", dev, streams.data_ptr(), sizes.data_ptr(), n,
+                ctypes.addressof(hdr), payload, status.data_ptr(),
+                out.data_ptr(), what="pack launch"),
             "whole call": lambda: pack.pack_streams(streams, sizes, header,
                                                     payload=payload),
             "whole call, the other tree": other and (
@@ -582,7 +579,8 @@ def wrapper_split(pack, kernels, streams, sizes, header, card,
         },
         "unpack": {
             "checks": unpack_checks,
-            "_device_type": lambda: pack._device_type([code], "X3"),
+            "kernels.device_type": lambda: kernels.device_type([code],
+                                                               "X3"),
             "torch.empty (rows)": lambda: torch.empty(
                 (n, 4096), dtype=torch.int32, device=dev),
             "torch.empty (sizes)": lambda: torch.empty(
@@ -592,6 +590,11 @@ def wrapper_split(pack, kernels, streams, sizes, header, card,
                 code.data_ptr(), n, payload, status.data_ptr(),
                 rows.data_ptr(), z.data_ptr(), stream),
             "kernels.check": lambda: kernels.check(lib, 0, "unpack launch"),
+            "kernels.launch (the library, the unsaved parts, the launch, "
+            "the check)": lambda: kernels.launch(
+                "picsong_unpack", dev, code.data_ptr(), n, payload,
+                status.data_ptr(), rows.data_ptr(), z.data_ptr(),
+                what="unpack launch"),
             "whole call": lambda: pack.unpack_streams(code, n, payload),
             "whole call, the other tree": other and (
                 lambda: other.unpack_streams(code, n, payload)),
@@ -671,8 +674,6 @@ def probe_split(name: str, module, kernels, dargs, card, other) -> None:
     LAYER_TURNS."""
     import torch
 
-    from ..transform import dwt_cuda
-
     lib, dev = kernels.library(), dargs[0].device
     out = torch.empty((module.ROWS, module.C), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -683,11 +684,15 @@ def probe_split(name: str, module, kernels, dargs, card, other) -> None:
         "kernels.library()": kernels.library,
         "torch.empty (out)": lambda: torch.empty(
             (module.ROWS, module.C), dtype=torch.int32, device=dev),
-        **_stream_parts(dev, dwt_cuda._on),
+        **_stream_parts(dev),
         "ctypes launch": lambda: entry(dargs[0].data_ptr(),
                                        dargs[1].data_ptr(), out.data_ptr(),
                                        stream),
         "kernels.check": lambda: kernels.check(lib, 0, f"{name} launch"),
+        "kernels.launch (the library, the unsaved parts, the launch, the "
+        "check)": lambda: kernels.launch(
+            f"picsong_{name}", dev, dargs[0].data_ptr(), dargs[1].data_ptr(),
+            out.data_ptr(), what=f"{name} launch"),
         "whole run": lambda: module.run(*dargs),
     }, split=name, card=card)
     # the whole launch of both trees in turns: the host's spread is as

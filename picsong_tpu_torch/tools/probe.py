@@ -22,8 +22,6 @@ import numpy as np
 import torch
 
 from .. import kernels
-from ..entropy.bpc_cuda import BYTES_PER_S, INT32_OPS_PER_S
-from ..transform.dwt_cuda import _on
 
 C = 128        # codeblock chunk
 CAP = 512      # tape row length
@@ -71,8 +69,9 @@ def bound_ms(tape: torch.Tensor, base: torch.Tensor) -> tuple[float, str]:
     """The least time an H100 could take for the probe on these inputs,
     and what bounds it: the larger of `words_moved` over the memory rate
     and the int32 operations over the int32 rate."""
-    bytes_s = words_moved(tape, base) * 4 / BYTES_PER_S
-    ops_s = (ROWS * C * OPS_PER_CELL + C * OPS_PER_COLUMN) / INT32_OPS_PER_S
+    bytes_s = words_moved(tape, base) * 4 / kernels.BYTES_PER_S
+    ops_s = ((ROWS * C * OPS_PER_CELL + C * OPS_PER_COLUMN)
+             / kernels.INT32_OPS_PER_S)
     return (max(bytes_s, ops_s) * 1e3,
             "operations" if ops_s >= bytes_s else "bytes")
 
@@ -86,8 +85,6 @@ def check_inputs(tape: torch.Tensor, base: torch.Tensor) -> None:
         if tuple(t.shape) != shape or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous {shape} tensor, "
                              f"got {tuple(t.shape)}")
-    if tape.device != base.device:
-        raise ValueError("tape and base are on different devices")
     if bool(((base < 0) | (base >= CAP)).any()):
         raise ValueError(f"base must lie in [0, {CAP})")
 
@@ -95,30 +92,24 @@ def check_inputs(tape: torch.Tensor, base: torch.Tensor) -> None:
 def run(tape: torch.Tensor, base: torch.Tensor) -> torch.Tensor:
     """The probe: CUDA tensors launch the kernel, CPU tensors take the
     plain version, anything else raises."""
+    device = kernels.device_type([tape, base], "probe")
     check_inputs(tape, base)
-    if tape.device.type == "cpu":
+    if device == "cpu":
         return plain(tape, base)
-    if tape.device.type != "cuda":
-        raise ValueError(f"no probe implementation for device {tape.device}")
     return launch(tape, base)
 
 
-def launch(tape: torch.Tensor, base: torch.Tensor, lib=None) -> torch.Tensor:
+def launch(tape: torch.Tensor, base: torch.Tensor) -> torch.Tensor:
     """The kernel launch alone, for CUDA tensors that `check_inputs`
     accepted (its domain check reads the device, so a timing loop keeps it
     out), on the tensors' device and its current stream. Does not
     synchronise. The kernel moves 16-byte vectors where tape and base are
-    16-byte aligned, else words. `lib` is the kernel library to launch
-    (default: the package's own)."""
+    16-byte aligned, else words."""
     global LAUNCHES
-    lib = lib or kernels.library()
     out = torch.empty((ROWS, C), dtype=torch.int32, device=tape.device)
-    ctx, stream = _on(tape.device)
-    with ctx:
-        rc = lib.picsong_probe(tape.data_ptr(), base.data_ptr(),
-                               out.data_ptr(), stream)
+    kernels.launch("picsong_probe", tape.device, tape.data_ptr(),
+                   base.data_ptr(), out.data_ptr(), what="probe launch")
     LAUNCHES += 1
-    kernels.check(lib, rc, "probe launch")
     return out
 
 

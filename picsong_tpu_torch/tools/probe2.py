@@ -24,8 +24,6 @@ import numpy as np
 import torch
 
 from .. import kernels
-from ..entropy.bpc_cuda import BYTES_PER_S, INT32_OPS_PER_S
-from ..transform.dwt_cuda import _on
 from .probe import time_entry_point, wrap32
 
 C = 128           # codeblock chunk
@@ -70,8 +68,9 @@ def bound_ms(tape: torch.Tensor, amt: torch.Tensor) -> tuple[float, str]:
     """The least time an H100 could take for the probe, and what bounds
     it: the larger of `words_moved` over the memory rate and the int32
     operations over the int32 rate."""
-    bytes_s = words_moved(tape, amt) * 4 / BYTES_PER_S
-    ops_s = (ROWS * C * OPS_PER_CELL + C * OPS_PER_COLUMN) / INT32_OPS_PER_S
+    bytes_s = words_moved(tape, amt) * 4 / kernels.BYTES_PER_S
+    ops_s = ((ROWS * C * OPS_PER_CELL + C * OPS_PER_COLUMN)
+             / kernels.INT32_OPS_PER_S)
     return (max(bytes_s, ops_s) * 1e3,
             "operations" if ops_s >= bytes_s else "bytes")
 
@@ -87,8 +86,6 @@ def check_inputs(tape: torch.Tensor, amt: torch.Tensor) -> None:
         if tuple(t.shape) != shape or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous {shape} tensor, "
                              f"got {tuple(t.shape)}")
-    if tape.device != amt.device:
-        raise ValueError("tape and amt are on different devices")
     if bool(((amt < 0) | (amt >= AMT_END)).any()):
         raise ValueError(f"amt must lie in [0, {AMT_END})")
 
@@ -96,29 +93,23 @@ def check_inputs(tape: torch.Tensor, amt: torch.Tensor) -> None:
 def run(tape: torch.Tensor, amt: torch.Tensor) -> torch.Tensor:
     """The probe: CUDA tensors launch the kernel, CPU tensors take the
     plain version, anything else raises."""
+    device = kernels.device_type([tape, amt], "probe")
     check_inputs(tape, amt)
-    if tape.device.type == "cpu":
+    if device == "cpu":
         return plain(tape, amt)
-    if tape.device.type != "cuda":
-        raise ValueError(f"no probe implementation for device {tape.device}")
     return launch(tape, amt)
 
 
-def launch(tape: torch.Tensor, amt: torch.Tensor, lib=None) -> torch.Tensor:
+def launch(tape: torch.Tensor, amt: torch.Tensor) -> torch.Tensor:
     """The kernel launch alone, for CUDA tensors that `check_inputs`
     accepted (its domain check reads the device, so a timing loop keeps it
     out), on the tensors' device and its current stream. Does not
-    synchronise. `lib` is the kernel library to launch (default: the
-    package's own)."""
+    synchronise."""
     global LAUNCHES
-    lib = lib or kernels.library()
     out = torch.empty((ROWS, C), dtype=torch.int32, device=tape.device)
-    ctx, stream = _on(tape.device)
-    with ctx:
-        rc = lib.picsong_probe2(tape.data_ptr(), amt.data_ptr(),
-                                out.data_ptr(), stream)
+    kernels.launch("picsong_probe2", tape.device, tape.data_ptr(),
+                   amt.data_ptr(), out.data_ptr(), what="probe2 launch")
     LAUNCHES += 1
-    kernels.check(lib, rc, "probe2 launch")
     return out
 
 

@@ -36,11 +36,11 @@ Samples are one gray or three RGB (..., ah, aw) planes (ah, aw the
 adapted size of the configuration), with no leading dimension (an image)
 or one (a batch of frames); three planes of one (B, 3, ah, aw) tensor are
 taken as they lie, with their strides. On CUDA the kernels
-(`csrc/dwt_forward.cu`, `csrc/dwt_reverse.cu`) launch one grid per level on
-the current stream of the tensors' device, under that device, without
-synchronising; there is no path from a CUDA tensor to the plain version.
-`FORWARD_LAUNCHES` / `REVERSE_LAUNCHES` count the calls that launched them
-(a shard-mode call is one).
+(`csrc/dwt_forward.cu`, `csrc/dwt_reverse.cu`) launch one grid per level
+through `kernels.launch`, on the current stream of the tensors' device,
+without synchronising; there is no path from a CUDA tensor to the plain
+version. `FORWARD_LAUNCHES` / `REVERSE_LAUNCHES` count the calls that
+launched them (a shard-mode call is one).
 
 The plain version is the arithmetic contract: the 9/7 lifting rounds once
 per JAX op, and the ICT is the oracle's FMA chain (`fma_row`); the kernels
@@ -51,7 +51,6 @@ a constant exactly through its float32 `reciprocal` (csrc/dwt_common.cuh
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import functools
 
@@ -62,7 +61,6 @@ from .. import kernels
 from ..core import spec
 from ..core.geometry import codeblocks_to_plane, plane_to_codeblocks
 from ..core.header import CodecConfig
-from ..entropy.bpc_cuda import BYTES_PER_S, INT32_OPS_PER_S
 from ..obs.trace import spanned
 from . import dwt
 
@@ -90,8 +88,6 @@ X4_STAGE_COLS = 36
 # bases allow it (`vector_block_loads`)
 VECTOR_BYTES = 16
 
-# the H100 SXM's float32 rate outside the tensor cores
-FLOAT32_OPS_PER_S = 67e12
 # operations of the lifting a sample costs at one level, both passes (the
 # kernels' own arithmetic): 5/3 a predict (3 int32 ops) or an update (4)
 # per pass; 9/7 four steps of 3 float32 ops on half the samples and one
@@ -230,27 +226,6 @@ def reverse_plain(blocks: list[torch.Tensor],
 # The kernels
 # --------------------------------------------------------------------------
 
-def _device_type(tensors: list[torch.Tensor], what: str) -> str:
-    devices = {t.device for t in tensors}
-    if len(devices) != 1:
-        raise ValueError(f"{what} inputs are on several devices: {devices}")
-    dev = devices.pop()
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"no {what} implementation for device {dev}")
-    return dev.type
-
-
-def _on(dev: torch.device):
-    """The device and the raw handle of its current stream for a launch:
-    `torch.cuda.device` is entered only when `dev` is not the current
-    device, and the handle is read without a Stream object (the two cost
-    3.6 and 5.6 us of a 2048^2 call's host time on an H100; kernel_ab
-    --pack)."""
-    ctx = (contextlib.nullcontext() if dev.index == torch.cuda.current_device()
-           else torch.cuda.device(dev))
-    return ctx, torch._C._cuda_getCurrentRawStream(dev.index)
-
-
 def _n_components(cfg: CodecConfig, got: int, what: str) -> int:
     want = 3 if cfg.is_rgb else 1
     if got != want:
@@ -358,14 +333,13 @@ def vector_block_loads(blocks: list[torch.Tensor]) -> bool:
 
 
 @spanned("picsong/x2")
-def forward(samples: list[torch.Tensor], cfg: CodecConfig, lib=None):
+def forward(samples: list[torch.Tensor], cfg: CodecConfig):
     """X2: one gray or [R, G, B] (..., ah, aw) sample planes -> ([blocks
     (..., ncb, 64, 64) int32 per component], 0-dim int32 maximum of
-    |coefficient| over all components). `lib` is the kernel library to
-    launch (default: the package's own)."""
+    |coefficient| over all components)."""
     global FORWARD_LAUNCHES
     nc = _n_components(cfg, len(samples), "sample planes")
-    device = _device_type(samples, "X2")
+    device = kernels.device_type(samples, "X2")
     lead, ah, aw = _check_samples(samples, cfg)
     if device == "cpu":
         return forward_plain(samples, cfg)
@@ -379,16 +353,14 @@ def forward(samples: list[torch.Tensor], cfg: CodecConfig, lib=None):
     scratch = _scratch(nc * batch, ah, aw, cfg.wavelet_levels, dev)
     consts = _constants(cfg.wavelet_levels, cfg.qs, True)
     ptrs = [s.data_ptr() for s in samples] + [None] * (3 - nc)
-    lib = lib or kernels.library()
-    with torch.cuda.device(dev):
-        rc = lib.picsong_dwt_forward(
-            *ptrs, _SAMPLE_TYPES[first.dtype], int(vector_loads(samples)),
-            first.stride(0) if lead else 0, first.stride(-2), batch, nc, ah,
-            aw, cfg.wavelet_levels, int(cfg.is_lossy), offset(cfg),
-            ctypes.addressof(consts), scratch.data_ptr(), blocks.data_ptr(),
-            top.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    kernels.launch(
+        "picsong_dwt_forward", dev, *ptrs, _SAMPLE_TYPES[first.dtype],
+        int(vector_loads(samples)), first.stride(0) if lead else 0,
+        first.stride(-2), batch, nc, ah, aw, cfg.wavelet_levels,
+        int(cfg.is_lossy), offset(cfg), ctypes.addressof(consts),
+        scratch.data_ptr(), blocks.data_ptr(), top.data_ptr(),
+        what="dwt_forward launch")
     FORWARD_LAUNCHES += 1
-    kernels.check(lib, rc, "dwt_forward launch")
     return list(blocks.unbind(0)), top
 
 
@@ -410,14 +382,14 @@ def _check_blocks(blocks: list[torch.Tensor], cfg: CodecConfig):
 
 
 @spanned("picsong/x4")
-def reverse(blocks: list[torch.Tensor], cfg: CodecConfig,
-            lib=None) -> list[torch.Tensor]:
+def reverse(blocks: list[torch.Tensor],
+            cfg: CodecConfig) -> list[torch.Tensor]:
     """X4: per component the (..., ncb, 64, 64) int32 codeblocks -> one gray
     or [R, G, B] (..., ah, aw) sample planes of the configuration's sample
-    type. `lib` as in `forward`."""
+    type."""
     global REVERSE_LAUNCHES
     nc = _n_components(cfg, len(blocks), "codeblock tensors")
-    device = _device_type(blocks, "X4")
+    device = kernels.device_type(blocks, "X4")
     lead, ah, aw = _check_blocks(blocks, cfg)
     if device == "cpu":
         return reverse_plain(blocks, cfg)
@@ -429,16 +401,13 @@ def reverse(blocks: list[torch.Tensor], cfg: CodecConfig,
     consts = _constants(cfg.wavelet_levels, cfg.qs, False)
     mn, mx = sample_range(cfg)
     ptrs = [b.data_ptr() for b in blocks] + [None] * (3 - nc)
-    lib = lib or kernels.library()
-    with torch.cuda.device(dev):
-        rc = lib.picsong_dwt_reverse(
-            *ptrs, int(vector_block_loads(blocks)), batch, nc, ah, aw,
-            cfg.wavelet_levels, int(cfg.is_lossy), offset(cfg), mn, mx,
-            _SAMPLE_TYPES[out.dtype],
-            ctypes.addressof(consts), scratch.data_ptr(), out.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
+    kernels.launch(
+        "picsong_dwt_reverse", dev, *ptrs, int(vector_block_loads(blocks)),
+        batch, nc, ah, aw, cfg.wavelet_levels, int(cfg.is_lossy),
+        offset(cfg), mn, mx, _SAMPLE_TYPES[out.dtype],
+        ctypes.addressof(consts), scratch.data_ptr(), out.data_ptr(),
+        what="dwt_reverse launch")
     REVERSE_LAUNCHES += 1
-    kernels.check(lib, rc, "dwt_reverse launch")
     return list(out.unbind(-3))
 
 
@@ -452,9 +421,10 @@ def bound_ms(samples: list[torch.Tensor], cfg: CodecConfig) -> tuple[float, str]
     design's cost, not part of the bound."""
     n = sum(s.numel() for s in samples)
     bytes_s = sum(s.numel() * (s.element_size() + 4)
-                  for s in samples) / BYTES_PER_S
+                  for s in samples) / kernels.BYTES_PER_S
     planes = sum(n / 4 ** level for level in range(cfg.wavelet_levels))
-    rate = FLOAT32_OPS_PER_S if cfg.is_lossy else INT32_OPS_PER_S
+    rate = (kernels.FLOAT32_OPS_PER_S if cfg.is_lossy
+            else kernels.INT32_OPS_PER_S)
     ops_s = planes * OPS_PER_SAMPLE_LEVEL[cfg.is_lossy] / rate
     return (max(ops_s, bytes_s) * 1e3,
             "operations" if ops_s > bytes_s else "bytes")
@@ -547,7 +517,7 @@ def forward_shard_plain(planes: list[torch.Tensor], cfg: CodecConfig,
 @spanned("picsong/x2")
 def forward_shard(planes: list[torch.Tensor], cfg: CodecConfig, level: int,
                   first: int, r0: int, r1: int,
-                  top: torch.Tensor | None = None, lib=None):
+                  top: torch.Tensor | None = None):
     """X2's shard mode: level `level` of the plane rows [r0, r1) (even) of
     `planes`, which hold the rows from `first` on of the level's plane
     (ah >> level, aw >> level): the shard's rows and its neighbours' halo,
@@ -560,7 +530,7 @@ def forward_shard(planes: list[torch.Tensor], cfg: CodecConfig, level: int,
     the last level), taken with `top` when given (on a card the kernel
     raises `top` in place)."""
     global FORWARD_LAUNCHES
-    device = _device_type(planes, "X2")
+    device = kernels.device_type(planes, "X2")
     samples = _check_shard_planes(planes, cfg, level, first, r0, r1)
     if device == "cpu":
         return forward_shard_plain(planes, cfg, level, first, r0, r1, top)
@@ -573,17 +543,14 @@ def forward_shard(planes: list[torch.Tensor], cfg: CodecConfig, level: int,
         top = torch.zeros((), dtype=torch.int32, device=dev)
     consts = _constants(cfg.wavelet_levels, cfg.qs, True)
     ptrs = [p.data_ptr() for p in planes] + [None] * (3 - nc)
-    lib = lib or kernels.library()
-    ctx, stream = _on(dev)
-    with ctx:
-        rc = lib.picsong_dwt_forward_shard(
-            *ptrs, _SAMPLE_TYPES[planes[0].dtype] if samples else _VALUES,
-            int(vector_loads(planes)), planes[0].stride(0), nc, h, w, level,
-            cfg.wavelet_levels, int(cfg.is_lossy), offset(cfg), first,
-            first + planes[0].shape[0], r0, r1, ctypes.addressof(consts),
-            bands.data_ptr(), top.data_ptr(), stream)
+    kernels.launch(
+        "picsong_dwt_forward_shard", dev, *ptrs,
+        _SAMPLE_TYPES[planes[0].dtype] if samples else _VALUES,
+        int(vector_loads(planes)), planes[0].stride(0), nc, h, w, level,
+        cfg.wavelet_levels, int(cfg.is_lossy), offset(cfg), first,
+        first + planes[0].shape[0], r0, r1, ctypes.addressof(consts),
+        bands.data_ptr(), top.data_ptr(), what="dwt_forward_shard launch")
     FORWARD_LAUNCHES += 1
-    kernels.check(lib, rc, "dwt_forward_shard launch")
     ll = bands[0]
     if cfg.is_lossy and level < cfg.wavelet_levels - 1:
         ll = ll.view(torch.float32)
@@ -646,7 +613,7 @@ def reverse_shard_plain(bands, cfg: CodecConfig, level: int, first: int,
 
 @spanned("picsong/x4")
 def reverse_shard(bands, cfg: CodecConfig, level: int, first: int, r0: int,
-                  r1: int, to_samples: bool = True, lib=None) -> torch.Tensor:
+                  r1: int, to_samples: bool = True) -> torch.Tensor:
     """X4's shard mode: level `level` from the (comps, rows, w / 2) band
     rows (LL, HL, LH, HH: the LL's values above the deepest level, float32
     for 9/7, else quantized int32) that hold the band rows from `first` on:
@@ -657,7 +624,7 @@ def reverse_shard(bands, cfg: CodecConfig, level: int, first: int, r0: int,
     configuration's type."""
     global REVERSE_LAUNCHES
     bands = tuple(bands)
-    device = _device_type(list(bands), "X4")
+    device = kernels.device_type(bands, "X4")
     nc = _check_shard_bands(bands, cfg, level, first, r0, r1, to_samples)
     if device == "cpu":
         return reverse_shard_plain(bands, cfg, level, first, r0, r1,
@@ -671,16 +638,12 @@ def reverse_shard(bands, cfg: CodecConfig, level: int, first: int, r0: int,
                       device=dev)
     consts = _constants(cfg.wavelet_levels, cfg.qs, False)
     mn, mx = sample_range(cfg)
-    lib = lib or kernels.library()
-    ctx, stream = _on(dev)
-    with ctx:
-        rc = lib.picsong_dwt_reverse_shard(
-            *(b.data_ptr() for b in bands), int(vector_block_loads(bands)),
-            nc, h, w, level, cfg.wavelet_levels, int(cfg.is_lossy),
-            int(final), offset(cfg), mn, mx,
-            _SAMPLE_TYPES[out.dtype] if final else _VALUES,
-            ctypes.addressof(consts), first, first + bands[0].shape[1], r0,
-            r1, out.data_ptr(), stream)
+    kernels.launch(
+        "picsong_dwt_reverse_shard", dev, *(b.data_ptr() for b in bands),
+        int(vector_block_loads(bands)), nc, h, w, level, cfg.wavelet_levels,
+        int(cfg.is_lossy), int(final), offset(cfg), mn, mx,
+        _SAMPLE_TYPES[out.dtype] if final else _VALUES,
+        ctypes.addressof(consts), first, first + bands[0].shape[1], r0, r1,
+        out.data_ptr(), what="dwt_reverse_shard launch")
     REVERSE_LAUNCHES += 1
-    kernels.check(lib, rc, "dwt_reverse_shard launch")
     return out.view(torch.float32) if cfg.is_lossy and not final else out

@@ -8,8 +8,6 @@ On the card, where JAX is absent, run them without the JAX conftest:
 Every value is an integer, so every comparison is exact (tolerance 0).
 """
 
-import contextlib
-
 import numpy as np
 import pytest
 import torch
@@ -539,12 +537,13 @@ def test_frame_parallel_video_on_cuda_equals_one_device(cuda, tmp_path):
 class _Spy:
     """The kernel library, recording each launch's stream argument and the
     device current while it launches, for the entry points named
-    `prefix`*."""
+    `prefix`*; a test puts it in place of `kernels.library`."""
 
-    def __init__(self, prefix="picsong_bpc_"):
+    def __init__(self, prefix):
         self.lib = kernels.library()
         self.prefix = prefix
         self.calls = []
+        self.names = []
 
     def __getattr__(self, name):
         fn = getattr(self.lib, name)
@@ -553,91 +552,9 @@ class _Spy:
 
         def launch(*args):
             self.calls.append((args[-1], torch.cuda.current_device()))
+            self.names.append(name)
             return fn(*args)
         return launch
-
-
-def _spied_round_trip(device, stream=None):
-    """Encode and decode a random batch on `device` (under `stream` if
-    given) through the spy; returns the spy's calls after checking the
-    results against the plain coder."""
-    blocks, args, kw, n_planes = _batch(5, 200)
-    dargs = [a.to(device) for a in args]
-    spy = _Spy()
-    b = blocks.to(device)
-    with (torch.cuda.stream(stream) if stream is not None
-          else contextlib.nullcontext()):
-        s_k, z_k = bpc_cuda.encode_blocks(b, *dargs, **kw, n_planes=n_planes,
-                                          lib=spy)
-        out = bpc_cuda.decode_blocks(s_k, z_k, *dargs, **kw,
-                                     n_planes=n_planes, lib=spy)
-    torch.cuda.synchronize(device)
-    want_s, want_z = bpc.encode_blocks_plain(blocks, *args, **kw,
-                                             n_planes=n_planes)
-    assert torch.equal(s_k.cpu(), want_s) and torch.equal(z_k.cpu(), want_z)
-    raw = want_z == 4096
-    assert torch.equal(out.cpu()[~raw], blocks[~raw])
-    return spy.calls
-
-
-def test_launch_goes_to_the_current_stream(cuda):
-    """Under a non-default current stream the BPC kernels launch on that
-    stream, with the results of the plain coder."""
-    side = torch.cuda.Stream(cuda)
-    calls = _spied_round_trip(cuda, side)
-    assert calls == [(side.cuda_stream, torch.cuda.current_device())] * 2
-
-
-def test_launch_on_second_card_goes_to_its_stream(cuda):
-    """Tensors on cuda:1 while cuda:0 is current: the launch runs under
-    cuda:1 on cuda:1's current stream (the stream of the tensors' device,
-    not of the current device)."""
-    if torch.cuda.device_count() < 2:
-        pytest.skip("needs two CUDA devices; this machine has "
-                    f"{torch.cuda.device_count()}")
-    second = torch.device("cuda", 1)
-    with torch.cuda.device(0):
-        calls = _spied_round_trip(second)
-    assert calls == [(torch.cuda.current_stream(second).cuda_stream, 1)] * 2
-
-
-def _spied_probes(device, stream=None):
-    """Both probe kernels on `device` (under `stream` if given) through
-    the spy; returns the spy's calls after checking the results against
-    the plain versions."""
-    spy = _Spy("picsong_probe")
-    got = []
-    with (torch.cuda.stream(stream) if stream is not None
-          else contextlib.nullcontext()):
-        for module in (probe, probe2):
-            cpu = [torch.from_numpy(a) for a in module.inputs(1)]
-            dargs = [a.to(device) for a in cpu]
-            got.append((module, cpu, dargs, module.launch(*dargs, lib=spy)))
-    torch.cuda.synchronize(device)
-    for module, cpu, dargs, out in got:
-        assert out.device == dargs[0].device
-        assert torch.equal(out.cpu(), module.plain(*cpu))
-    return spy.calls
-
-
-def test_probe_launch_goes_to_the_current_stream(cuda):
-    """Under a non-default current stream the probe kernels launch on that
-    stream, with the plain versions' results."""
-    side = torch.cuda.Stream(cuda)
-    calls = _spied_probes(cuda, side)
-    assert calls == [(side.cuda_stream, torch.cuda.current_device())] * 2
-
-
-def test_probe_launch_on_second_card_goes_to_its_stream(cuda):
-    """Tensors on cuda:1 while cuda:0 is current: each probe launches
-    under cuda:1 on cuda:1's current stream."""
-    if torch.cuda.device_count() < 2:
-        pytest.skip("needs two CUDA devices; this machine has "
-                    f"{torch.cuda.device_count()}")
-    second = torch.device("cuda", 1)
-    with torch.cuda.device(0):
-        calls = _spied_probes(second)
-    assert calls == [(torch.cuda.current_stream(second).cuda_stream, 1)] * 2
 
 
 @pytest.mark.parametrize("skip", [1, 2, 3])
@@ -853,24 +770,6 @@ def test_dwt_forward_counts_one_launch_a_call(cuda):
     assert dwt_cuda.FORWARD_LAUNCHES == 3
 
 
-def test_dwt_launch_goes_to_the_current_stream(cuda):
-    """Under a non-default current stream X2 and X4 launch on that stream,
-    with the plain version's results."""
-    cfg = _dwt_cfg(256, 256, lossy=True, wl=4)
-    samples = _dwt_samples(cfg)
-    spy = _Spy("picsong_dwt_")
-    side = torch.cuda.Stream(cuda)
-    with torch.cuda.stream(side):
-        blocks, top = dwt_cuda.forward([s.to(cuda) for s in samples], cfg,
-                                       lib=spy)
-        back = dwt_cuda.reverse(blocks, cfg, lib=spy)
-    torch.cuda.synchronize()
-    assert spy.calls == [(side.cuda_stream, torch.cuda.current_device())] * 2
-    want, want_top = dwt_cuda.forward(samples, cfg)
-    assert int(top) == int(want_top) and torch.equal(blocks[0].cpu(), want[0])
-    assert torch.equal(back[0].cpu(), dwt_cuda.reverse(want, cfg)[0])
-
-
 @pytest.mark.parametrize("rgb,lossy,n", [(False, False, 3), (True, True, 2),
                                          (False, True, 4)])
 def test_sharded_codec_runs_the_shard_modes(cuda, rgb, lossy, n):
@@ -930,30 +829,6 @@ def test_sharded_codec_on_several_cards(cuda, lossy, monkeypatch):
     assert {d for _, d in calls} == set(range(cards))
     for stream, d in calls:
         assert stream == torch.cuda.current_stream(d).cuda_stream
-
-
-def test_shard_mode_launches_go_to_the_current_stream(cuda):
-    """Under a non-default current stream the shard modes launch on that
-    stream, with the plain version's results."""
-    cfg = _dwt_cfg(256, 256, lossy=True, wl=3)
-    (plane,) = _dwt_samples(cfg)
-    rows = plane[56:140]            # rows 60..136 with the 9/7 halo of 4
-    spy = _Spy("picsong_dwt_")
-    side = torch.cuda.Stream(cuda)
-    with torch.cuda.stream(side):
-        bands, top = dwt_cuda.forward_shard([rows.to(cuda)], cfg, 0, 56, 60,
-                                            136, lib=spy)
-        # band rows 30..68: rows 64..128 with the band halo of 2
-        back = dwt_cuda.reverse_shard(bands, cfg, 0, 30, 64, 128, lib=spy)
-    torch.cuda.synchronize()
-    assert spy.calls == [(side.cuda_stream, torch.cuda.current_device())] * 2
-    want, want_top = dwt_cuda.forward_shard_plain([rows], cfg, 0, 56, 60,
-                                                  136)
-    assert int(top) == int(want_top)
-    for b, w_ in zip(bands, want):
-        assert torch.equal(b.cpu(), w_)
-    assert torch.equal(back.cpu(), dwt_cuda.reverse_shard_plain(
-        want, cfg, 0, 30, 64, 128))
 
 
 # -- X3: the codestream pack and unpack kernels -------------------------------
@@ -1047,28 +922,6 @@ def test_unpack_kernel_reads_misaligned_views(cuda):
         assert torch.equal(z_back.cpu(), sizes)
 
 
-def test_pack_launch_goes_to_the_current_stream(cuda):
-    """Under a non-default current stream the pack and unpack kernels
-    launch on that stream, after the work already queued there, with the
-    plain version's results."""
-    streams, sizes = _pack_batch(3, "mixed", 300)
-    spy = _Spy("picsong_")
-    side = torch.cuda.Stream(cuda)
-    with torch.cuda.stream(side):
-        # produced on the side stream just before the launch
-        s_d = streams.to(cuda, non_blocking=True).clone()
-        z_d = sizes.to(cuda, non_blocking=True).clone()
-        got = pack.pack_streams(s_d, z_d, None, lib=spy)
-        payload = int(sizes.sum()) - 300
-        s_back, z_back = pack.unpack_streams(got, 300, payload, lib=spy)
-    torch.cuda.synchronize()
-    assert spy.calls == [(side.cuda_stream, torch.cuda.current_device())] * 2
-    assert torch.equal(got.cpu(), pack.pack_streams_plain(streams, sizes,
-                                                          None))
-    assert torch.equal(s_back.cpu(), streams)
-    assert torch.equal(z_back.cpu(), sizes)
-
-
 def test_codecs_run_the_pack_kernels(cuda):
     """TorchCodec.encode / decode on the card launch the pack and unpack
     kernels once a component, and the wrapper refuses a CUDA tensor it
@@ -1088,3 +941,118 @@ def test_codecs_run_the_pack_kernels(cuda):
     flat = torch.zeros(4 * 4096 + 1, dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="16-byte aligned"):
         pack.pack_streams(flat[1:].view(4, 4096), sizes.to(cuda), None)
+
+
+# -- every entry point: the current stream of the tensors' device -----------
+
+def _case_bpc(device, decode):
+    blocks, args, kw, n_planes = _batch(5, 200)
+    kw = dict(kw, n_planes=n_planes)
+    dargs = [a.to(device) for a in args]
+    streams, sizes = bpc.encode_blocks_plain(blocks, *args, **kw)
+    if not decode:
+        got = bpc_cuda.encode_blocks(blocks.to(device), *dargs, **kw)
+        return lambda: (torch.equal(got[0].cpu(), streams)
+                        and torch.equal(got[1].cpu(), sizes))
+    got = bpc_cuda.decode_blocks(streams.to(device), sizes.to(device),
+                                 *dargs, **kw)
+    coded = sizes != 4096
+    return lambda: torch.equal(got.cpu()[coded], blocks[coded])
+
+
+def _case_dwt(device, reverse):
+    cfg = _dwt_cfg(256, 256, lossy=True, wl=4)
+    samples = _dwt_samples(cfg)
+    blocks, top = dwt_cuda.forward_plain(samples, cfg)
+    if not reverse:
+        got, got_top = dwt_cuda.forward([s.to(device) for s in samples], cfg)
+        return lambda: (int(got_top) == int(top)
+                        and torch.equal(got[0].cpu(), blocks[0]))
+    got = dwt_cuda.reverse([b.to(device) for b in blocks], cfg)
+    want = dwt_cuda.reverse_plain(blocks, cfg)
+    return lambda: torch.equal(got[0].cpu(), want[0])
+
+
+def _case_shard(device, reverse):
+    cfg = _dwt_cfg(256, 256, lossy=True, wl=3)
+    rows = _dwt_samples(cfg)[0][56:140]   # rows 60..136, the 9/7 halo of 4
+    bands, top = dwt_cuda.forward_shard_plain([rows], cfg, 0, 56, 60, 136)
+    if not reverse:
+        got, got_top = dwt_cuda.forward_shard([rows.to(device)], cfg, 0, 56,
+                                              60, 136)
+        return lambda: int(got_top) == int(top) and all(
+            torch.equal(g.cpu(), w) for g, w in zip(got, bands))
+    # band rows 30..68: rows 64..128 with the band halo of 2
+    got = dwt_cuda.reverse_shard([b.to(device) for b in bands], cfg, 0, 30,
+                                 64, 128)
+    want = dwt_cuda.reverse_shard_plain(bands, cfg, 0, 30, 64, 128)
+    return lambda: torch.equal(got.cpu(), want)
+
+
+def _case_pack(device, unpack):
+    streams, sizes = _pack_batch(3, "mixed", 300)
+    code = pack.pack_streams_plain(streams, sizes, None)
+    if not unpack:
+        got = pack.pack_streams(streams.to(device), sizes.to(device), None)
+        return lambda: torch.equal(got.cpu(), code)
+    got = pack.unpack_streams(code.to(device), 300, int(sizes.sum()) - 300)
+    return lambda: (torch.equal(got[0].cpu(), streams)
+                    and torch.equal(got[1].cpu(), sizes))
+
+
+def _case_probe(device, module):
+    cpu = [torch.from_numpy(a) for a in module.inputs(1)]
+    dargs = [a.to(device) for a in cpu]
+    got = module.launch(*dargs)
+    return lambda: (got.device == dargs[0].device
+                    and torch.equal(got.cpu(), module.plain(*cpu)))
+
+
+# each C entry point: a call of its wrapper on CUDA tensors, the inputs
+# made on the current stream just before it, and then its check against
+# the plain version
+_ENTRY_CASES = {
+    "picsong_bpc_encode": lambda d: _case_bpc(d, False),
+    "picsong_bpc_decode": lambda d: _case_bpc(d, True),
+    "picsong_dwt_forward": lambda d: _case_dwt(d, False),
+    "picsong_dwt_reverse": lambda d: _case_dwt(d, True),
+    "picsong_dwt_forward_shard": lambda d: _case_shard(d, False),
+    "picsong_dwt_reverse_shard": lambda d: _case_shard(d, True),
+    "picsong_pack": lambda d: _case_pack(d, False),
+    "picsong_unpack": lambda d: _case_pack(d, True),
+    "picsong_probe": lambda d: _case_probe(d, probe),
+    "picsong_probe2": lambda d: _case_probe(d, probe2),
+}
+
+
+def test_entry_cases_cover_every_entry_point():
+    assert set(_ENTRY_CASES) == set(kernels._SIGNATURES)
+
+
+@pytest.mark.parametrize("where", ["side stream", "second card"])
+@pytest.mark.parametrize("entry", sorted(_ENTRY_CASES))
+def test_launch_goes_to_the_current_stream(cuda, monkeypatch, entry, where):
+    """Each wrapper launches its entry point once, through
+    `kernels.launch`, on the current stream of its tensors' device: under
+    a non-default current stream on that stream; with its tensors on
+    cuda:1 while cuda:0 is current, under cuda:1 on cuda:1's current
+    stream. Its results are the plain version's."""
+    spy = _Spy(entry)
+    monkeypatch.setattr(kernels, "library", lambda *a, **k: spy)
+    if where == "side stream":
+        device = cuda
+        side = torch.cuda.Stream(device)
+        with torch.cuda.stream(side):
+            check = _ENTRY_CASES[entry](device)
+        want = [(side.cuda_stream, torch.cuda.current_device())]
+    else:
+        if torch.cuda.device_count() < 2:
+            pytest.skip("needs two CUDA devices; this machine has "
+                        f"{torch.cuda.device_count()}")
+        device = torch.device("cuda", 1)
+        with torch.cuda.device(0):
+            check = _ENTRY_CASES[entry](device)
+        want = [(torch.cuda.current_stream(device).cuda_stream, 1)]
+    torch.cuda.synchronize(device)
+    assert spy.names == [entry] and spy.calls == want
+    assert check()

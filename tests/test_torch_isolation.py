@@ -1,7 +1,10 @@
 """The port stands without JAX and without the JAX package, and it has no
 hidden fallbacks: the kernel loader raises instead of degrading, and the
-BPC dispatch refuses devices it has no implementation for."""
+BPC dispatch refuses devices it has no implementation for. Its layers
+keep to their order: only `kernels.py` reaches the card, and no module
+imports another's private names."""
 
+import ast
 import os
 import re
 import subprocess
@@ -16,6 +19,9 @@ from picsong_tpu_torch.entropy import bpc_cuda
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "picsong_tpu_torch")
+MODULES = sorted(os.path.relpath(os.path.join(root, n), PKG)
+                 for root, _, files in os.walk(PKG)
+                 for n in files if n.endswith(".py"))
 
 
 # `import jax...` / `from jax...`, and `import picsong_tpu...` / `from
@@ -147,3 +153,80 @@ def test_bpc_dispatch_cpu_takes_plain_version_without_counting():
     out = bpc_cuda.decode_blocks(streams, sizes, lut, *meta, **kw)
     assert torch.equal(out, blocks)
     assert (bpc_cuda.ENCODE_LAUNCHES, bpc_cuda.DECODE_LAUNCHES) == before
+
+
+def _package_imports(rel: str) -> list[tuple[str, list[str]]]:
+    """(module, imported names) of each `from ... import` of a package
+    module in the module `rel`, the module as a dotted path from the
+    package root ("core.spec", "kernels", ...); `from .. import kernels`
+    is ("kernels", ["kernels"])."""
+    here = os.path.dirname(rel).split(os.sep) if os.path.dirname(rel) else []
+    tree = ast.parse(open(os.path.join(PKG, rel)).read())
+    out = []
+    for node in ast.walk(tree):
+        if not isinstance(node, ast.ImportFrom):
+            continue
+        names = [a.name for a in node.names]
+        if node.level:
+            base = here[:len(here) - node.level + 1]
+            if not node.module:
+                out += [(".".join(base + [n]), [n]) for n in names]
+                continue
+            mod = ".".join(base + [node.module])
+        elif (node.module or "").split(".")[0] == "picsong_tpu_torch":
+            mod = node.module.partition(".")[2]
+        else:
+            continue
+        out.append((mod, names))
+    return out
+
+
+# what reaches the card: entering a device, its raw stream, the library
+_LAUNCH_TOKENS = ("torch.cuda.device(", "_cuda_getCurrentRawStream",
+                  "library()")
+# the video threads enter their device; kernel_ab's host split times each
+# part of a launch on its own
+_LAUNCH_EXCEPTIONS = {
+    os.path.join("engine", "video.py"): ("torch.cuda.device(",),
+    os.path.join("tools", "kernel_ab.py"): _LAUNCH_TOKENS,
+}
+
+
+@pytest.mark.parametrize("rel", MODULES)
+def test_module_keeps_to_its_layer(rel):
+    """No module imports a `_`-prefixed name of a package module; only
+    `kernels.py` enters a device, reads a raw stream or loads the library
+    (the two exceptions named above); `kernels.py` imports no package
+    module, and the wrapper layers (`transform`, `entropy`, `assembly`)
+    none of each other's nor anything above them."""
+    imports = _package_imports(rel)
+    assert [(m, n) for m, names in imports for n in names
+            if n.startswith("_")] == []
+    if rel != "kernels.py":
+        text = open(os.path.join(PKG, rel)).read()
+        allowed = _LAUNCH_EXCEPTIONS.get(rel, ())
+        assert [t for t in _LAUNCH_TOKENS
+                if t in text and t not in allowed] == []
+    layer = rel.split(os.sep)[0]
+    if rel == "kernels.py":
+        assert imports == []
+    elif layer in ("transform", "entropy", "assembly"):
+        below = ("core", "obs", "kernels", layer)
+        assert [m for m, _ in imports
+                if m.split(".")[0] not in below] == []
+
+
+@pytest.mark.parametrize("devices,raises", [
+    (("cpu", "cpu"), None),
+    (("cpu", "meta"), "X9 inputs are on several devices"),
+    (("meta", "meta"), "no X9 implementation for device meta"),
+])
+def test_device_type(devices, raises):
+    """`kernels.device_type`: the one device type of its tensors, or the
+    refusal of several devices or of a device with no implementation."""
+    tensors = [torch.zeros(1, device=d) for d in devices]
+    if raises is None:
+        assert kernels.device_type(tensors, "X9") == "cpu"
+    else:
+        with pytest.raises(ValueError, match=raises):
+            kernels.device_type(tensors, "X9")

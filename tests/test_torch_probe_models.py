@@ -16,7 +16,7 @@ import pytest
 import torch
 
 from picsong_tpu_torch import kernels
-from picsong_tpu_torch.entropy.bpc_cuda import BYTES_PER_S
+from picsong_tpu_torch.kernels import BYTES_PER_S
 from picsong_tpu_torch.tools import kernel_ab, probe, probe2
 from test_torch_probes import _interpret, _probe2_case, _probe_case
 
